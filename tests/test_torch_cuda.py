@@ -1,0 +1,95 @@
+"""media_tpu_torch on a CUDA device: the deblocking kernel against its plain
+version, and whole sessions on CUDA against the CPU path (which the other
+tests/test_torch_*.py hold to the JAX package).
+
+This file imports no JAX, so it runs on a CUDA host that has none:
+
+    python -m pytest tests/test_torch_cuda.py -m cuda
+
+Every test skips where torch.cuda is unavailable.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from media_tpu.utils import yuv
+from media_tpu_torch.ops import deblock_wave as dw
+from media_tpu_torch.pipeline import deblock_apply as tda
+from media_tpu_torch.pipeline.codec import EncoderConfig, EncoderSession
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (and nvcc to build the kernel)")
+    return torch.device("cuda")
+
+
+# (6, 9) is small; (34, 80) has waves of 34 MBs = 1088 lines, more than the
+# kernel's 1024 threads, so threads loop over lines.
+@pytest.mark.parametrize("R,C", [(6, 9), (34, 80)])
+@pytest.mark.parametrize("per_mb", [False, True])
+def test_kernel_matches_plain(cuda_device, per_mb, R, C):
+    rng = np.random.default_rng(R * C)
+    planes = [torch.as_tensor(rng.integers(0, 256, (R * s, C * s)) // 8 + 100,
+                              dtype=torch.uint8) for s in (16, 8, 8)]
+    bs_v = torch.as_tensor(rng.integers(0, 5, (R * 4, C * 4)), dtype=torch.int32)
+    bs_h = torch.as_tensor(rng.integers(0, 5, (R * 4, C * 4)), dtype=torch.int32)
+    qp_map = torch.as_tensor(
+        np.clip(30 + rng.integers(-6, 7, (R, C)), 0, 51)) if per_mb else None
+    meta = tda.build_meta(30, 29, bs_v, bs_h, R, C, qp_map=qp_map)
+    dev = [p.clone().to(cuda_device) for p in planes]
+    cpu = [p.clone() for p in planes]
+    before = dw.deblock_wave.launches
+    dw.deblock_wave(*dev, meta.to(cuda_device), R, C)
+    torch.cuda.synchronize()
+    assert dw.deblock_wave.launches == before + 1
+    dw.deblock_wave(*cpu, meta, R, C)
+    assert dw.deblock_wave.launches == before + 1  # the CPU path launches none
+    for a, b in zip(dev, cpu):
+        assert torch.equal(a.cpu(), b)
+    assert any(not torch.equal(b, p) for b, p in zip(cpu, planes))
+
+
+def test_argmin_keeps_first_minimum(cuda_device):
+    # MVs and intra modes are the first minimum of tied int32 costs.
+    costs = np.random.default_rng(1).integers(0, 4, (4096, 289)).astype(np.int32)
+    got = torch.argmin(torch.as_tensor(costs, device=cuda_device), dim=1)
+    np.testing.assert_array_equal(got.cpu().numpy(), np.argmin(costs, axis=1))
+
+
+def _clip(w, h, n, seed=0):
+    rng = np.random.default_rng(seed)
+    big = rng.integers(0, 256, (h + 48, w + 48)).astype(np.float64)
+    for _ in range(2):
+        big = (big + np.roll(big, 1, 0) + np.roll(big, 1, 1)) / 3
+    out = []
+    for t in range(n):
+        y = big[2 * t : 2 * t + h, 3 * t : 3 * t + w].copy()
+        y[10:22, 5 + 7 * t : 17 + 7 * t] = 235
+        y = (y + rng.normal(0, 1.5, y.shape)).round().clip(0, 255).astype(
+            np.uint8)
+        out.append(yuv.pack_i420(y, (y[::2, ::2] // 2 + 40).astype(np.uint8),
+                                 (y[::2, ::2] // 3 + 70).astype(np.uint8)))
+    return out
+
+
+@pytest.mark.parametrize("entropy", ["device", "host"])
+def test_session_on_cuda_matches_cpu(cuda_device, entropy):
+    frames = _clip(72, 40, 7)
+    out, recon = [], []
+    for device in (cuda_device, "cpu"):
+        s = EncoderSession(EncoderConfig(width=72, height=40, qp=28,
+                                         gop_size=30, entropy_mode=entropy),
+                           device=device)
+        s.PIPELINE_CHUNK = 3
+        aus = [s.encode_frame(frames[0])] + s.encode_frames(frames[1:4])
+        aus += s.encode_frames_staged(s.upload_frames(frames[4:]))
+        out.append(aus)
+        recon.append([p.cpu() for p in s.recon])
+    assert out[0] == out[1]
+    for a, b in zip(*recon):
+        assert torch.equal(a, b)
