@@ -5,19 +5,31 @@
 
 Phases, one line each; nothing is caught, any failure exits non-zero:
   1. environment: nvidia-smi name/power limit, torch/CUDA versions;
-  2. build: nvcc compiles media_tpu_torch/csrc/*.cu for sm_90a;
-  3. kernel == plain: the whole-frame deblocking kernel against its plain
-     PyTorch version at the 1080p geometry (R=68, C=120), uniform QP
-     22/30/36 and one per-MB QP map, exact equality, both timed with CUDA
-     events; and torch.argmin's first-minimum rule on CUDA;
-  4. main path: EncoderSession(1920x1080, QP 30, CAVLC, deblock, entropy on
-     the device) on "cuda": an IDR via encode_frame, 8 P frames via
-     encode_frames, 8 more via upload_frames + encode_frames_staged; the
+  2. build: nvcc compiles media_tpu_torch/csrc/*.cu for sm_90a (one process
+     per source);
+  3. kernels == plain versions, exact equality, both timed with CUDA events:
+     the whole-frame deblocking kernel at the 1080p geometry (R=68, C=120),
+     uniform QP 22/30/36 and one per-MB QP map; the wave-step deblocking
+     kernel on the patches and meta rows of the widest 1080p wave (N=60) and
+     of N=1, QP 22/30/36; the two routes of deblock_frame against each
+     other; and torch.argmin's first-minimum rule on CUDA;
+  4. encode path: EncoderSession(1920x1080, QP 30, CAVLC, deblock, entropy on
+     the device) on its default device: an IDR via encode_frame, 8 P frames
+     via encode_frames, 8 more via upload_frames + encode_frames_staged; the
      deblock launch count, the AU digests against the ones recorded from
      the JAX package (media_tpu_torch/golden_1080p.json, written by
      tools/record_torch_golden.py), P-frame fps, a per-stage split and the
      last recon's PSNR; plus a small clip encoded on CUDA and on the CPU
-     (which the tests hold to the JAX package) must give the same bytes.
+     (which the tests hold to the JAX package) must give the same bytes;
+  5. decode path: TpuDecoder() (default device, whole-frame deblock route)
+     decodes phase 4's IDR + 8 P access units: picture 0 must equal the
+     encoder's recon after the IDR and picture 8 its recon after
+     encode_frames, every picture's digest the one recorded from the JAX
+     TpuDecoder, with one whole-frame kernel launch per picture; decode fps
+     and the split host parse / upload / device per picture; then
+     TpuDecoder(deblock_kernel="wave") decodes the IDR + 2 P to the same
+     planes through 254 wave-step launches per picture; plus a small stream
+     decoded on CUDA and on the CPU must give the same planes.
 The second-to-last line is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -35,9 +47,22 @@ import numpy as np
 
 WIDTH, HEIGHT, QP = 1920, 1080, 30
 N_P = 8          # P frames per phase (encode_frames, then staged)
+N_DEC_P = 8      # P pictures decoded through the whole-frame deblock route
+N_WAVE_P = 2     # P pictures decoded through the per-wave deblock route
 CHUNK = 8        # session PIPELINE_CHUNK, as the JAX package's bench uses
 SEED = 0
+R_MB, C_MB = -(-HEIGHT // 16), -(-WIDTH // 16)  # 68 x 120 macroblocks
 ROOT = os.path.dirname(os.path.abspath(__file__))
+
+# Published peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s, and the
+# float32 rate outside the tensor cores, taken as the ceiling of the
+# kernels' int32 arithmetic (the data sheet gives no integer rate).
+PEAK_BYTES_S = 3.35e12
+PEAK_OPS_S = 67e12
+# Integer operations of one line filter on its longest path, counted from
+# csrc/deblock_filters.cuh (loads, compares, adds, shifts, clips, stores).
+OPS_LUMA_LINE = 64
+OPS_CHROMA_LINE = 28
 
 
 def synthetic_video(w, h, n, seed=0):
@@ -83,6 +108,13 @@ def _sha(aus) -> str:
     return hashlib.sha256(b"".join(aus)).hexdigest()
 
 
+def planes_sha(frame) -> str:
+    """sha256 over the Y, U, V planes of a decoded picture."""
+    return hashlib.sha256(b"".join(
+        np.ascontiguousarray(p).tobytes()
+        for p in (frame.y, frame.u, frame.v))).hexdigest()
+
+
 def _psnr(a, b) -> float:
     mse = np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2)
     return float("inf") if mse == 0 else 10.0 * np.log10(255.0 ** 2 / mse)
@@ -102,6 +134,41 @@ def _cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _bound(n_bytes: int, meta) -> dict:
+    """The least time the card could take: bytes moved once over the memory
+    rate against the line filters this meta asks for over the ALU rate."""
+    luma_lines = int((meta[:, 0:32] > 0).sum()) * 4
+    chroma_lines = int((meta[:, 64:80] > 0).sum()) * 2 * 2  # U and V
+    ops = luma_lines * OPS_LUMA_LINE + chroma_lines * OPS_CHROMA_LINE
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_S, ops / PEAK_OPS_S
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None}  # no PyTorch call computes this function
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _smooth_planes(R, C, g, dev):
+    """Random planes smoothed so that many edges pass the alpha/beta tests."""
+    import torch
+
+    return [(torch.randint(0, 256, (R * s, C * s), generator=g,
+                           dtype=torch.int32) // 8 + 100).to(torch.uint8).to(dev)
+            for s in (16, 8, 8)]
+
+
+def _random_bs(R, C, g):
+    import torch
+
+    bs_v = torch.randint(0, 5, (R * 4, C * 4), generator=g, dtype=torch.int32)
+    bs_h = torch.randint(0, 5, (R * 4, C * 4), generator=g, dtype=torch.int32)
+    bs_v[:, 0] = 0
+    bs_h[0, :] = 0
+    return bs_v, bs_h
 
 
 def phase_environment():
@@ -138,24 +205,16 @@ def phase_kernel(smi: str) -> dict:
     from media_tpu_torch.pipeline.deblock_apply import build_meta
 
     dev = torch.device("cuda")
-    R, C = 68, 120
+    R, C = R_MB, C_MB
     g = torch.Generator(device="cpu").manual_seed(7)
-
-    def rand(shape, hi):
-        return torch.randint(0, hi, shape, generator=g, dtype=torch.int32)
-
-    planes = [rand((R * 16, C * 16), 256), rand((R * 8, C * 8), 256),
-              rand((R * 8, C * 8), 256)]
-    # Smooth the planes so that many edges pass the alpha/beta tests.
-    planes = [(p // 8 + 100).to(torch.uint8).to(dev) for p in planes]
-    bs_v = rand((R * 4, C * 4), 5)
-    bs_h = rand((R * 4, C * 4), 5)
-    bs_v[:, 0] = 0
-    bs_h[0, :] = 0
-    qp_map = (30 + rand((R, C), 9) - 4).to(dev)
+    planes = _smooth_planes(R, C, g, dev)
+    bs_v, bs_h = _random_bs(R, C, g)
+    qp_map = (30 + torch.randint(0, 9, (R, C), generator=g,
+                                 dtype=torch.int32) - 4).to(dev)
     cases = [(qp, None) for qp in (22, 30, 36)] + [(30, qp_map)]
     max_err = 0
     kernel_ms = plain_ms = 0.0
+    bound = {}
     for qp, qmap in cases:
         meta = build_meta(qp, int(chroma_qp(qp)), bs_v.to(dev), bs_h.to(dev),
                           R, C, qp_map=qmap)
@@ -179,10 +238,13 @@ def phase_kernel(smi: str) -> dict:
             kernel_ms = _cuda_ms(lambda: deblock_wave(*work, meta, R, C), 50)
             plain_ms = _cuda_ms(
                 lambda: deblock_wave_plain(*work, meta, R, C), 2)
+            # Planes read once and written once, meta read once.
+            bound = _bound(2 * _nbytes(*work) + _nbytes(meta), meta)
         print(f"[kernel] deblock_wave qp={qp} qp_map={qmap is not None} "
               f"equal=True samples_changed={changed}")
     print(f"[kernel] deblock_wave 1080p (R={R}, C={C}) kernel {kernel_ms:.4f} "
-          f"ms plain {plain_ms:.4f} ms | {smi}")
+          f"ms plain {plain_ms:.4f} ms bound {bound['bound_ms']:.6f} ms by "
+          f"{bound['bound_by']} | {smi}")
 
     # First-minimum rule of argmin on CUDA for tied int32 costs (MVs and
     # modes depend on it).
@@ -193,7 +255,92 @@ def phase_kernel(smi: str) -> dict:
         raise AssertionError("torch.argmin on CUDA does not keep the first "
                              "minimum")
     print("[kernel] argmin keeps the first minimum on CUDA ties: True")
-    return {"max_abs_err": max_err, "ms": kernel_ms, "plain_ms": plain_ms}
+    return {"max_abs_err": max_err, "ms": kernel_ms, "plain_ms": plain_ms,
+            **bound}
+
+
+def phase_kernel_step(smi: str) -> dict:
+    """The wave-step kernel against its plain version on the patches the
+    per-wave route gathers at 1080p, and that route against the whole-frame
+    one."""
+    import torch
+
+    from media_tpu_torch.ops.deblock_pallas import (
+        deblock_wave_step, deblock_wave_step_plain)
+    from media_tpu_torch.ops.deblock_wave import (
+        n_waves, pad_top_left, wave_patch_indices)
+    from media_tpu_torch.ops.transform import chroma_qp
+    from media_tpu_torch.pipeline.deblock_apply import (
+        build_meta, deblock_frame)
+
+    dev = torch.device("cuda")
+    R, C = R_MB, C_MB
+    g = torch.Generator(device="cpu").manual_seed(11)
+    planes = _smooth_planes(R, C, g, dev)
+    bs_v, bs_h = (b.to(dev) for b in _random_bs(R, C, g))
+    padded = [pad_top_left(p) for p in planes]
+    waves = wave_patch_indices(R, C, dev)
+    widths = [len(w[-1]) for w in waves]
+    widest = widths.index(max(widths))
+    if max(widths) != min(R, (C + 1) // 2) or widths[0] != 1:
+        raise AssertionError(f"waves: widest {max(widths)}, first "
+                             f"{widths[0]}")
+
+    def gather(k):
+        ry, cy, rc, cc, rows = waves[k]
+        return [padded[0][ry, cy], padded[1][rc, cc], padded[2][rc, cc]], rows
+
+    max_err = 0
+    kernel_ms = plain_ms = 0.0
+    bound = {}
+    for qp in (22, 30, 36):
+        meta = build_meta(qp, int(chroma_qp(qp)), bs_v, bs_h, R, C)
+        for k in (widest, 0):
+            patches, rows = gather(k)
+            m = meta[rows]
+            got = deblock_wave_step(*patches, m)
+            want = deblock_wave_step_plain(*patches, m)
+            torch.cuda.synchronize()
+            for a, b, name in zip(got, want, "yuv"):
+                err = int((a.int() - b.int()).abs().max())
+                max_err = max(max_err, err)
+                if not torch.equal(a, b):
+                    raise AssertionError(
+                        f"deblock_wave_step kernel != plain on {name}, qp "
+                        f"{qp}, N {len(rows)}: max |err| {err}")
+            changed = sum(int((a != p).sum()) for a, p in zip(got, patches))
+            # One MB at QP 22 may pass no alpha/beta test; a wave of 60 does.
+            if changed == 0 and (k == widest or qp == 36):
+                raise AssertionError("wave-step test case filtered nothing")
+            if qp == 30 and k == widest:
+                kernel_ms = _cuda_ms(lambda: deblock_wave_step(*patches, m),
+                                     200)
+                plain_ms = _cuda_ms(
+                    lambda: deblock_wave_step_plain(*patches, m), 5)
+                # Patches read once and written once, meta rows read once.
+                bound = _bound(2 * _nbytes(*patches) + _nbytes(m), m)
+            print(f"[kernel] deblock_wave_step qp={qp} N={len(rows)} "
+                  f"equal=True samples_changed={changed}")
+    print(f"[kernel] deblock_wave_step N={max(widths)} (widest wave of "
+          f"R={R}, C={C}) kernel "
+          f"{kernel_ms:.4f} ms plain {plain_ms:.4f} ms bound "
+          f"{bound['bound_ms']:.6f} ms by {bound['bound_by']} | {smi}")
+
+    # The two routes of deblock_frame on one 1080p frame: same planes.
+    qp = 30
+    args = (*planes, qp, int(chroma_qp(qp)), bs_v, bs_h, R, C)
+    a = deblock_frame(*args, kernel="frame")
+    b = deblock_frame(*args, kernel="wave")
+    for p, q, name in zip(a, b, "yuv"):
+        if not torch.equal(p, q):
+            raise AssertionError(f"deblock_frame routes differ on {name}")
+    t_frame = _cuda_ms(lambda: deblock_frame(*args, kernel="frame"), 10)
+    t_wave = _cuda_ms(lambda: deblock_frame(*args, kernel="wave"), 2)
+    print(f"[kernel] deblock_frame R={R} C={C}, meta build included: route frame "
+          f"{t_frame:.3f} ms (1 launch), route wave {t_wave:.3f} ms "
+          f"({n_waves(R, C)} launches) | {smi}")
+    return {"max_abs_err": max_err, "ms": kernel_ms, "plain_ms": plain_ms,
+            **bound}
 
 
 def _stage_split(sess, frame_buf, smi: str):
@@ -246,20 +393,22 @@ def _stage_split(sess, frame_buf, smi: str):
           f"{t_pack:.3f} deblock {t_deblock:.3f} host_au {t_host:.3f} | {smi}")
 
 
-def phase_main_path(smi: str) -> int:
+def phase_main_path(smi: str, golden: dict):
+    """The encode path. Returns (deblock launches, the IDR + P AUs of the
+    first run, the recon after the IDR, the recon after that run)."""
     import torch
 
     from media_tpu_torch.ops.deblock_wave import deblock_wave
     from media_tpu_torch.pipeline.codec import EncoderConfig, EncoderSession
 
-    with open(os.path.join(ROOT, "media_tpu_torch", "golden_1080p.json")) as f:
-        golden = json.load(f)
     bufs, clip_sha = clip_i420()
     if clip_sha != golden["clip_sha256"]:
         raise AssertionError(f"input clip digest {clip_sha} != recorded "
                              f"{golden['clip_sha256']} (numpy clip differs)")
     sess = EncoderSession(EncoderConfig(width=WIDTH, height=HEIGHT, qp=QP,
-                                        gop_size=300), device="cuda")
+                                        gop_size=300))  # default device
+    if sess.device.type != "cuda":
+        raise AssertionError(f"EncoderSession defaulted to {sess.device}")
     sess.PIPELINE_CHUNK = CHUNK
     staged_in = bufs[1 + N_P : 1 + 2 * N_P]
 
@@ -267,7 +416,9 @@ def phase_main_path(smi: str) -> int:
     t0 = time.perf_counter()
     aus = [sess.encode_frame(bufs[0])]
     t_idr = time.perf_counter() - t0
+    recon_idr = [p.clone() for p in sess.recon]
     aus += sess.encode_frames(bufs[1 : 1 + N_P])
+    recon_run = [p.clone() for p in sess.recon]
     chunks = sess.upload_frames(staged_in)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -320,7 +471,116 @@ def phase_main_path(smi: str) -> int:
     if out[0] != out[1]:
         raise AssertionError("64x48 AUs differ between cuda and cpu")
     print("[main] 64x48 IDR + 4 P: cuda AUs == cpu AUs")
-    return launches
+    return launches, aus, recon_idr, recon_run
+
+
+def _split(timings, idr: bool) -> str:
+    rows = [t for t in timings if t["idr"] == idr]
+    mean = {k: sum(t[k] for t in rows) / len(rows)
+            for k in ("parse_ms", "upload_ms", "device_ms")}
+    return (f"{'I' if idr else 'P'} x{len(rows)}: host parse "
+            f"{mean['parse_ms']:.1f} upload {mean['upload_ms']:.3f} device "
+            f"recon+deblock {mean['device_ms']:.3f}")
+
+
+def phase_decode_path(smi: str, golden: dict, aus, recon_idr, recon_run):
+    """The decode path through both deblock routes. Returns the launches of
+    (the whole-frame kernel, the wave-step kernel)."""
+    import torch
+
+    from media_tpu_torch.ops.deblock_pallas import deblock_wave_step
+    from media_tpu_torch.ops.deblock_wave import deblock_wave, n_waves
+    from media_tpu_torch.pipeline.codec import EncoderConfig, EncoderSession
+    from media_tpu_torch.pipeline.decoder_tpu import TpuDecoder
+
+    def equal_planes(frame, planes, what):
+        for got, want, name in zip((frame.y, frame.u, frame.v), planes, "yuv"):
+            want = want.cpu().numpy() if torch.is_tensor(want) else want
+            if got.shape != want.shape or not np.array_equal(got, want):
+                raise AssertionError(f"{what}: plane {name} differs")
+
+    # ---- whole-frame route (the default), IDR + N_DEC_P P pictures
+    stream = aus[: 1 + N_DEC_P]
+    deblock_wave.launches = deblock_wave_step.launches = 0
+    dec = TpuDecoder(profile=True)  # default device, default route
+    if dec.device.type != "cuda" or dec.deblock_kernel != "frame":
+        raise AssertionError(f"TpuDecoder defaulted to {dec.device}, "
+                             f"{dec.deblock_kernel}")
+    t0 = time.perf_counter()
+    frames = [f for au in stream for f in dec.decode_annexb(au)]
+    for f in frames:
+        f.y  # wait for the downloads
+    t_all = time.perf_counter() - t0
+    frame_launches = deblock_wave.launches
+    if len(frames) != len(stream):
+        raise AssertionError(f"decoded {len(frames)} of {len(stream)} AUs")
+    if frame_launches != len(frames) or deblock_wave_step.launches != 0:
+        raise AssertionError(
+            f"whole-frame route: {frame_launches} whole-frame and "
+            f"{deblock_wave_step.launches} wave-step launches for "
+            f"{len(frames)} pictures")
+    equal_planes(frames[0], recon_idr, "decoded IDR vs encoder recon")
+    if N_DEC_P == N_P:
+        equal_planes(frames[-1], recon_run,
+                     "last decoded P vs encoder recon")
+    digests = [planes_sha(f) for f in frames]
+    if digests != golden["decoded_sha256"][: len(frames)]:
+        bad = [i for i, (a, b) in enumerate(
+            zip(digests, golden["decoded_sha256"])) if a != b]
+        raise AssertionError(f"decoded pictures {bad} differ from the JAX "
+                             "TpuDecoder's recorded digests")
+    ph, pw = frames[0].y.shape
+    if ((ph, pw) != (R_MB * 16, C_MB * 16)
+            or frames[0].u.shape != (ph // 2, pw // 2)):
+        raise AssertionError(f"decoded shapes {frames[0].y.shape}")
+    print(f"[decode] {WIDTH}x{HEIGHT} IDR + {N_DEC_P} P on cuda, route frame: "
+          "pictures == encoder recon == JAX TpuDecoder golden (sha256 "
+          f"{digests[-1][:16]}), deblock launches {frame_launches}/"
+          f"{len(frames)}")
+    p_s = sum(t["parse_ms"] + t["upload_ms"] + t["device_ms"]
+              for t in dec.timings if not t["idr"]) / 1e3
+    print(f"[decode] fps {len(frames) / t_all:.3f} over all {len(frames)} "
+          f"pictures, P pictures alone {N_DEC_P / p_s:.3f} (each stage "
+          f"synchronised) | {smi}")
+    print(f"[decode] ms per picture, route frame: {_split(dec.timings, True)}"
+          f"; {_split(dec.timings, False)} | {smi}")
+
+    # ---- per-wave route, IDR + N_WAVE_P P pictures
+    deblock_wave.launches = deblock_wave_step.launches = 0
+    wave = TpuDecoder(deblock_kernel="wave", profile=True)
+    wframes = [f for au in aus[: 1 + N_WAVE_P] for f in wave.decode_annexb(au)]
+    step_launches = deblock_wave_step.launches
+    want = (1 + N_WAVE_P) * n_waves(R_MB, C_MB)
+    if step_launches != want or deblock_wave.launches != 0:
+        raise AssertionError(
+            f"per-wave route: {step_launches} wave-step launches (expected "
+            f"{want}) and {deblock_wave.launches} whole-frame launches")
+    for i, (a, b) in enumerate(zip(wframes, frames)):
+        equal_planes(a, (b.y, b.u, b.v), f"route wave vs route frame, "
+                                         f"picture {i}")
+    print(f"[decode] route wave: IDR + {N_WAVE_P} P == route frame, "
+          f"wave-step launches {step_launches} = {1 + N_WAVE_P} x "
+          f"{n_waves(R_MB, C_MB)}")
+    print(f"[decode] ms per picture, route wave: {_split(wave.timings, True)}"
+          f"; {_split(wave.timings, False)} | {smi}")
+
+    # ---- a small stream on CUDA and on the CPU (which the tests hold to
+    # the JAX package): same planes through both routes.
+    small, _ = clip_i420(64, 48, 5, seed=3)
+    s = EncoderSession(EncoderConfig(width=64, height=48, qp=QP, gop_size=30))
+    small_aus = [s.encode_frame(small[0])] + s.encode_frames(small[1:])
+    for kernel in ("frame", "wave"):
+        out = []
+        for device in ("cuda", "cpu"):
+            d = TpuDecoder(device=device, deblock_kernel=kernel)
+            out.append([f for au in small_aus for f in d.decode_annexb(au)])
+        for i, (a, b) in enumerate(zip(*out)):
+            equal_planes(a, (b.y, b.u, b.v),
+                         f"64x48 cuda vs cpu, route {kernel}, picture {i}")
+        equal_planes(out[0][-1], s.recon, "64x48 decode vs encoder recon")
+    print("[decode] 64x48 IDR + 4 P: cuda planes == cpu planes == encoder "
+          "recon, both routes")
+    return frame_launches, step_launches
 
 
 def main() -> None:
@@ -330,14 +590,25 @@ def main() -> None:
     sys.path.insert(0, ROOT)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    with open(os.path.join(ROOT, "media_tpu_torch", "golden_1080p.json")) as f:
+        golden = json.load(f)
     phase_build()
     krec = phase_kernel(smi)
-    launches = phase_main_path(smi)
-    print(json.dumps({"kernels": [{
-        "name": "deblock_wave", "route": "cuda",
-        "source": "media_tpu_torch/csrc/deblock_wave.cu",
-        "replaces": "media_tpu/ops/deblock_wave_pallas.py:230",
-        "launches": launches, **krec}]}))
+    krec_step = phase_kernel_step(smi)
+    enc_launches, aus, recon_idr, recon_run = phase_main_path(smi, golden)
+    dec_launches, step_launches = phase_decode_path(smi, golden, aus,
+                                                    recon_idr, recon_run)
+    print(json.dumps({"kernels": [
+        {"name": "deblock_wave", "route": "cuda",
+         "source": "media_tpu_torch/csrc/deblock_wave.cu",
+         "replaces": "media_tpu/ops/deblock_wave_pallas.py:230",
+         "launches": enc_launches + dec_launches,
+         "launches_encode_path": enc_launches,
+         "launches_decode_path": dec_launches, **krec},
+        {"name": "deblock_wave_step", "route": "cuda",
+         "source": "media_tpu_torch/csrc/deblock_wave_step.cu",
+         "replaces": "media_tpu/ops/deblock_pallas.py:96",
+         "launches": step_launches, **krec_step}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -25,8 +25,7 @@ import functools
 import numpy as np
 import torch
 
-from media_tpu.entropy import cavlc_tables as tables
-
+from . import cavlc_tables as tables
 from ..pipeline.encoder import ZSCAN_TO_RASTER
 
 MASK32 = 0xFFFFFFFF

@@ -42,6 +42,17 @@ TC0_TABLE = np.array(
 )
 
 
+# Per-MB meta columns (int32, raster MB order):
+#   0:16   bS of vertical luma edges   [edge e, 4x4 block row b]
+#   16:32  bS of horizontal luma edges [edge e, 4x4 block column b]
+#   32:48  tc0 of vertical luma edges, 48:64 tc0 of horizontal luma edges
+#   64:72  bS of chroma vertical edges [edge 0/1 = luma edge 0/2, block b]
+#   72:80  bS of chroma horizontal edges, 80:88 / 88:96 their tc0
+#   96:112 luma (alpha, beta) per edge: vertical 0-3, then horizontal 0-3
+#   112:120 chroma (alpha, beta) per edge: v0, v1, h0, h1
+META_COLS = 120
+
+
 def filter_luma_taps(p3, p2, p1, p0, q0, q1, q2, q3, bs, alpha, beta, tc0):
     """Tap-wise luma edge filter (spec 8.7.2.3/8.7.2.4). All args are
     broadcastable int32 tensors (or ints); returns (p2', p1', p0', q0', q1',

@@ -4,8 +4,8 @@ Replaces media_tpu/ops/deblock_wave_pallas.py:deblock_wavemajor_pallas, the
 TPU kernel that runs the entire skewed MB wavefront of in-loop deblocking
 (spec 8.7) in one launch. Both versions here compute the same function of
 raster-order inputs: the planes, filtered in place, given a per-MB meta
-tensor (see META_COLS) that the caller builds from the bS grids and the
-per-edge thresholds (pipeline/deblock_apply.py:build_meta).
+tensor (see ops/deblock.py:META_COLS) that the caller builds from the bS
+grids and the per-edge thresholds (pipeline/deblock_apply.py:build_meta).
 
 MB (r, c) filters its own 16x16 block plus the 4 columns of its left
 neighbour and the 4 rows of its top neighbour, all vertical edges first,
@@ -30,20 +30,12 @@ wave captured in a CUDA graph, against it.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
-from .deblock import filter_chroma_taps, filter_luma_taps
-
-# Per-MB meta columns (int32, raster MB order):
-#   0:16   bS of vertical luma edges   [edge e, 4x4 block row b]
-#   16:32  bS of horizontal luma edges [edge e, 4x4 block column b]
-#   32:48  tc0 of vertical luma edges, 48:64 tc0 of horizontal luma edges
-#   64:72  bS of chroma vertical edges [edge 0/1 = luma edge 0/2, block b]
-#   72:80  bS of chroma horizontal edges, 80:88 / 88:96 their tc0
-#   96:112 luma (alpha, beta) per edge: vertical 0-3, then horizontal 0-3
-#   112:120 chroma (alpha, beta) per edge: v0, v1, h0, h1
-META_COLS = 120
+from .deblock import META_COLS
+from .deblock_pallas import deblock_wave_step_plain
 
 
 def n_waves(R: int, C: int) -> int:
@@ -58,88 +50,51 @@ def wave_mbs(k: int, R: int, C: int, device):
     return r, k - 2 * r
 
 
-def _luma_edges(patch, m):
-    """Filter the 4 vertical then 4 horizontal luma edges of (N, 20, 20)
-    int32 patches in place (own MB at [4:20, 4:20])."""
-    n = patch.shape[0]
-    bsv = m[:, 0:16].reshape(n, 4, 4).repeat_interleave(4, dim=2)
-    bsh = m[:, 16:32].reshape(n, 4, 4).repeat_interleave(4, dim=2)
-    tcv = m[:, 32:48].reshape(n, 4, 4).repeat_interleave(4, dim=2)
-    tch = m[:, 48:64].reshape(n, 4, 4).repeat_interleave(4, dim=2)
-    for e in range(4):
-        x = 4 + 4 * e
-        taps = [patch[:, 4:20, x - 4 + t] for t in range(8)]
-        out = filter_luma_taps(*taps, bsv[:, e], m[:, 96 + 2 * e, None],
-                               m[:, 97 + 2 * e, None], tcv[:, e])
-        for t, val in enumerate(out):
-            patch[:, 4:20, x - 3 + t] = val
-    for e in range(4):
-        yy = 4 + 4 * e
-        taps = [patch[:, yy - 4 + t, 4:20] for t in range(8)]
-        out = filter_luma_taps(*taps, bsh[:, e], m[:, 104 + 2 * e, None],
-                               m[:, 105 + 2 * e, None], tch[:, e])
-        for t, val in enumerate(out):
-            patch[:, yy - 3 + t, 4:20] = val
-
-
-def _chroma_edges(cp, m):
-    """Filter the 2 vertical then 2 horizontal edges of (N, 12, 12) int32
-    chroma patches in place (own block at [4:12, 4:12])."""
-    n = cp.shape[0]
-    bsv = m[:, 64:72].reshape(n, 2, 4).repeat_interleave(2, dim=2)
-    bsh = m[:, 72:80].reshape(n, 2, 4).repeat_interleave(2, dim=2)
-    tcv = m[:, 80:88].reshape(n, 2, 4).repeat_interleave(2, dim=2)
-    tch = m[:, 88:96].reshape(n, 2, 4).repeat_interleave(2, dim=2)
-    for e in range(2):
-        x = 4 + 4 * e
-        p0, q0 = filter_chroma_taps(
-            cp[:, 4:12, x - 2], cp[:, 4:12, x - 1], cp[:, 4:12, x],
-            cp[:, 4:12, x + 1], bsv[:, e], m[:, 112 + 2 * e, None],
-            m[:, 113 + 2 * e, None], tcv[:, e])
-        cp[:, 4:12, x - 1] = p0
-        cp[:, 4:12, x] = q0
-    for e in range(2):
-        yy = 4 + 4 * e
-        p0, q0 = filter_chroma_taps(
-            cp[:, yy - 2, 4:12], cp[:, yy - 1, 4:12], cp[:, yy, 4:12],
-            cp[:, yy + 1, 4:12], bsh[:, e], m[:, 116 + 2 * e, None],
-            m[:, 117 + 2 * e, None], tch[:, e])
-        cp[:, yy - 1, 4:12] = p0
-        cp[:, yy, 4:12] = q0
-
-
-def deblock_wave_plain(y, u, v, meta, R: int, C: int) -> None:
-    """Plain PyTorch version: filters the uint8 planes y (16R, 16C) and u/v
-    (8R, 8C) in place, one vectorised step per wave. Patches are gathered
-    from planes zero-padded by 4 at the top and left; border edges have
-    bS 0, so the padding is never filtered against."""
-    dev = y.device
-    planes = []
-    for p in (y, u, v):
-        pp = torch.zeros((p.shape[0] + 4, p.shape[1] + 4), dtype=torch.int32,
-                         device=dev)
-        pp[4:, 4:] = p
-        planes.append(pp)
-    yp, up, vp = planes
-    ar20 = torch.arange(20, device=dev)
-    ar12 = torch.arange(12, device=dev)
+@functools.lru_cache(maxsize=8)
+def wave_patch_indices(R: int, C: int, device: torch.device):
+    """Per wave: the (rows, cols) index pairs of its MBs' 20x20 luma and
+    12x12 chroma patches in planes padded by 4 at the top and left, and the
+    MBs' rows of the meta tensor. Built once per geometry and device."""
+    ar20 = torch.arange(20, device=device)
+    ar12 = torch.arange(12, device=device)
+    out = []
     for k in range(n_waves(R, C)):
-        r, c = wave_mbs(k, R, C, dev)
-        m = meta[r * C + c]
-        ry = (r[:, None] * 16 + ar20)[:, :, None]
-        cy = (c[:, None] * 16 + ar20)[:, None, :]
-        patch = yp[ry, cy]
-        _luma_edges(patch, m)
-        yp[ry, cy] = patch
-        rc = (r[:, None] * 8 + ar12)[:, :, None]
-        cc = (c[:, None] * 8 + ar12)[:, None, :]
-        for cpl in (up, vp):
-            cp = cpl[rc, cc]
-            _chroma_edges(cp, m)
-            cpl[rc, cc] = cp
+        r, c = wave_mbs(k, R, C, device)
+        out.append(((r[:, None] * 16 + ar20)[:, :, None],
+                    (c[:, None] * 16 + ar20)[:, None, :],
+                    (r[:, None] * 8 + ar12)[:, :, None],
+                    (c[:, None] * 8 + ar12)[:, None, :], r * C + c))
+    return out
+
+
+def pad_top_left(plane):
+    """The plane with 4 rows and columns of zeros at the top and left, so
+    that the MBs of row 0 and column 0 have patches too. Border edges have
+    bS 0, so the padding is never filtered against."""
+    out = torch.zeros((plane.shape[0] + 4, plane.shape[1] + 4),
+                      dtype=plane.dtype, device=plane.device)
+    out[4:, 4:] = plane
+    return out
+
+
+def run_waves(y, u, v, meta, R: int, C: int, step) -> None:
+    """Filter the uint8 planes y (16R, 16C) and u/v (8R, 8C) in place, one
+    call of `step(yp, up, vp, meta_rows)` per wave: a gather of the patches
+    of the wave's MBs, the step, a scatter back. Only MBs that exist are
+    gathered, and their patches are disjoint, so no scatter index repeats."""
+    yp, up, vp = (pad_top_left(p) for p in (y, u, v))
+    for ry, cy, rc, cc, rows in wave_patch_indices(R, C, y.device):
+        yp[ry, cy], up[rc, cc], vp[rc, cc] = step(
+            yp[ry, cy], up[rc, cc], vp[rc, cc], meta[rows])
     y.copy_(yp[4:, 4:])
     u.copy_(up[4:, 4:])
     v.copy_(vp[4:, 4:])
+
+
+def deblock_wave_plain(y, u, v, meta, R: int, C: int) -> None:
+    """Plain PyTorch version: filters the uint8 planes in place, one
+    vectorised plain wave step per wave."""
+    run_waves(y, u, v, meta, R, C, deblock_wave_step_plain)
 
 
 def _check(y, u, v, meta, R: int, C: int) -> None:

@@ -3,7 +3,8 @@
 PyTorch twin of media_tpu/ops/transform.py. Everything is int32 and
 bit-exact against Rec. ITU-T H.264 sections 8.5.10-8.5.12 with flat scaling
 lists. Blocks have shape (..., 4, 4) (or (..., 2, 2) for chroma DC). QP is a
-Python int: the port encodes at constant QP.
+Python int (the port encodes at constant QP); the two dequantisers that the
+decoder runs on adaptive-QP streams also take a per-MB (N,) QP tensor.
 """
 
 from __future__ import annotations
@@ -190,10 +191,17 @@ def quant_dc_2x2(w_dc, qp: int, *, intra: bool):
     return torch.sign(w) * torch.clamp(level, max=MAX_LEVEL)
 
 
-def dequant_4x4(z, qp: int):
-    """Dequantize 4x4 levels: d = z * V(qp%6, pos) << (qp/6)."""
+def dequant_4x4(z, qp):
+    """Dequantize 4x4 levels: d = z * V(qp%6, pos) << (qp/6). qp: int, or a
+    (N,) integer tensor of per-MB QPs for z of shape (N, ..., 4, 4)."""
     z = z.to(torch.int32)
-    return (z * _tables(z.device)["v"][qp % 6]) << (qp // 6)
+    v = _tables(z.device)["v"]
+    if not torch.is_tensor(qp):
+        return (z * v[qp % 6]) << (qp // 6)
+    qp = qp.to(torch.long)
+    n, mid = z.shape[0], (1,) * (z.dim() - 3)
+    shift = (qp // 6).to(torch.int32).reshape(n, *mid, 1, 1)
+    return (z * v[qp % 6].reshape(n, *mid, 4, 4)) << shift
 
 
 def dequant_dc_4x4(f_dc, qp: int):
@@ -206,12 +214,17 @@ def dequant_dc_4x4(f_dc, qp: int):
     return (f * ls + (1 << (5 - qp // 6))) >> (6 - qp // 6)
 
 
-def dequant_dc_2x2(f_dc, qp: int):
+def dequant_dc_2x2(f_dc, qp):
     """Dequantize chroma DC after the decoder-side 2x2 transform (spec
-    8.5.11): ((f * 16*V0) << (qp/6)) >> 5."""
+    8.5.11): ((f * 16*V0) << (qp/6)) >> 5. qp: int, or a (N,) integer tensor
+    of per-MB QPs for f_dc of shape (N, 2, 2)."""
     f = f_dc.to(torch.int32)
-    v0 = int(V_4x4[qp % 6, 0, 0])
-    return ((f * 16 * v0) << (qp // 6)) >> 5
+    if not torch.is_tensor(qp):
+        v0 = int(V_4x4[qp % 6, 0, 0])
+        return ((f * 16 * v0) << (qp // 6)) >> 5
+    qp = qp.to(torch.long)
+    v0 = _tables(f.device)["v"][qp % 6, 0, 0][:, None, None]
+    return ((f * 16 * v0) << (qp // 6).to(torch.int32)[:, None, None]) >> 5
 
 
 # --- Zig-zag -----------------------------------------------------------------

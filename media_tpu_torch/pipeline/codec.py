@@ -4,8 +4,8 @@ PyTorch twin of media_tpu/pipeline/codec.py:EncoderSession for the slice the
 port covers: CAVLC, constant QP, one slice, I_16x16 IDR + P frames, in-loop
 deblocking, P-slice entropy packed on the device or on the host. The AU
 bytes equal the JAX package's for the same input. The session runs on the
-device it is given; other configurations raise NotImplementedError naming
-the ROADMAP item that ports them.
+GPU unless the caller passes device="cpu"; other configurations raise
+NotImplementedError naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -15,14 +15,14 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from media_tpu.core.bitstream import BitWriter
-from media_tpu.core.nal import H264NalType, wrap_nal
-from media_tpu.core.syntax import (
+from ..core.bitstream import BitWriter
+from ..core.nal import H264NalType, wrap_nal
+from ..core.syntax import (
     PPS, SPS, SliceHeader, sei_recovery_point, sei_user_data, write_aud_rbsp,
     write_sei_rbsp)
-from media_tpu.utils import yuv
-
+from ..device import resolve_device
 from ..entropy.device_cavlc import merge_slice_data
+from ..utils import yuv
 from . import slice_coder
 from .encoder import FrameEncoder, stream_prefix_words
 from .pframe_core import unpack_symbols
@@ -84,12 +84,9 @@ class EncoderSession:
     # P-run pipeline chunk size (frames per device batch).
     PIPELINE_CHUNK = 4
 
-    def __init__(self, cfg: EncoderConfig, device):
+    def __init__(self, cfg: EncoderConfig, device="cuda"):
         _check_supported(cfg)
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("EncoderSession: device 'cuda' requested but "
-                               "torch.cuda.is_available() is False")
+        self.device = resolve_device(device)
         self.cfg = cfg
         self.sps = SPS.for_size(cfg.width, cfg.height, level_idc=cfg.level_idc)
         if cfg.signal_timing and cfg.framerate > 0:

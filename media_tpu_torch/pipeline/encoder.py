@@ -15,6 +15,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..ops import intra as intra_ops
 from ..ops import transform as T
 from ..ops.pad import edge_pad
@@ -60,10 +61,10 @@ def _plane_tensor(x, device):
 class FrameEncoder:
     """Per-geometry frame encoder on one device."""
 
-    def __init__(self, width: int, height: int, device):
+    def __init__(self, width: int, height: int, device="cuda"):
         if width % 16 or height % 16:
             raise ValueError("FrameEncoder operates on MB-padded planes")
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.width = width
         self.height = height
         self.n_cols = width // 16

@@ -1,21 +1,22 @@
-"""Host CAVLC slice writers: per-MB symbol arrays -> slice RBSP bits.
+"""Host CAVLC slice layer: per-MB symbol arrays <-> slice RBSP bits.
 
-JAX-free copies of the I_16x16 I-slice and the P-slice writers of
-media_tpu/pipeline/slice_coder.py (which cannot be imported without JAX:
-it takes ZSCAN_TO_RASTER from the JAX encoder module). The I-slice writer
-serves the IDR; the P-slice writer serves the overflow fallback of the
-on-device packer. A test holds both to the originals' output.
+Copies of the I_16x16 I-slice and the P-slice writers of
+media_tpu/pipeline/slice_coder.py and of its I-slice parser. The I-slice
+writer serves the IDR; the P-slice writer serves the overflow fallback of
+the on-device packer; the parser serves the decoder
+(pipeline/decoder_tpu.py). Tests hold all three to the originals.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import numpy as np
 
-from media_tpu.core.bitstream import BitWriter
-from media_tpu.entropy import cavlc
-from media_tpu.entropy import cavlc_tables as tables
-from media_tpu.pipeline import mv_pred
-
+from ..core.bitstream import BitReader, BitWriter
+from ..entropy import cavlc
+from ..entropy import cavlc_tables as tables
+from . import mv_pred
 from .encoder import ZSCAN_TO_RASTER
 
 
@@ -32,8 +33,12 @@ def _nc(nnz: np.ndarray, by: int, bx: int) -> int:
     return 0
 
 
+class UnsupportedStream(Exception):
+    """Feature outside the decode path's envelope."""
+
+
 class _MbGridCoder:
-    """nC bookkeeping for an encode walk."""
+    """nC bookkeeping for an encode or decode walk."""
 
     def __init__(self, n_rows: int, n_cols: int):
         self.luma_nnz = np.zeros((n_rows * 4, n_cols * 4), dtype=np.int32)
@@ -97,6 +102,89 @@ def _write_chroma_residual(bw, st, r, c, cdc, cac, cbp_chroma):
                     _nc(st.chroma_nnz[comp], by, bx))
     else:
         st.chroma_nnz[:, r * 2 : r * 2 + 2, c * 2 : c * 2 + 2] = 0
+
+
+@dataclass
+class ParsedISlice:
+    mode16: np.ndarray
+    chroma_mode: np.ndarray
+    dc_levels: np.ndarray
+    ac_levels: np.ndarray
+    cdc_levels: np.ndarray
+    cac_levels: np.ndarray
+    qp: int
+    covered: int = 0  # macroblocks parsed (== n_rows*n_cols unless partial)
+
+
+def parse_islice_mbs(br: BitReader, n_rows: int, n_cols: int, qp: int,
+                     partial: bool = False) -> ParsedISlice:
+    """Parse the I_16x16 MBs of an I slice written by write_islice_mbs. With
+    partial, stop at the RBSP end (one slice of a multi-slice picture parsed
+    into a slice-local array); `covered` reports the parsed MB count. An
+    I_4x4 macroblock raises UnsupportedStream."""
+    st = _MbGridCoder(n_rows, n_cols)
+    mode16 = np.zeros((n_rows, n_cols), np.int32)
+    chroma_mode = np.zeros((n_rows, n_cols), np.int32)
+    dc_levels = np.zeros((n_rows, n_cols, 16), np.int32)
+    ac_levels = np.zeros((n_rows, n_cols, 16, 15), np.int32)
+    cdc_levels = np.zeros((n_rows, n_cols, 2, 4), np.int32)
+    cac_levels = np.zeros((n_rows, n_cols, 2, 4, 15), np.int32)
+
+    covered = 0
+    done = False
+    for r in range(n_rows):
+        if done:
+            break
+        for c in range(n_cols):
+            if partial and covered > 0 and not br.more_rbsp_data():
+                done = True
+                break
+            covered += 1
+            mb_type = br.ue()
+            if mb_type == 0:
+                raise UnsupportedStream(
+                    "I_4x4 macroblock: media_tpu_torch does not port I_4x4 "
+                    "reconstruction yet (ROADMAP queue 1, item 10)")
+            if not 1 <= mb_type <= 24:
+                raise NotImplementedError(f"I-slice mb_type {mb_type} unsupported")
+            mt = mb_type - 1
+            mode16[r, c] = mt % 4
+            cbp_chroma = (mt // 4) % 3
+            cbp_luma = 15 if mt >= 12 else 0
+            chroma_mode[r, c] = br.ue()
+            if br.se():
+                raise NotImplementedError("per-MB QP changes not yet supported")
+            # Luma DC
+            coeffs, _tc = cavlc.decode_block(
+                br, _nc(st.luma_nnz, r * 4, c * 4), 16)
+            dc_levels[r, c] = coeffs
+            # Luma AC
+            if cbp_luma:
+                for zi in range(16):
+                    bi = int(ZSCAN_TO_RASTER[zi])
+                    by, bx = r * 4 + bi // 4, c * 4 + bi % 4
+                    coeffs, tc = cavlc.decode_block(
+                        br, _nc(st.luma_nnz, by, bx), 15)
+                    ac_levels[r, c, bi] = coeffs
+                    st.luma_nnz[by, bx] = tc
+            # Chroma
+            if cbp_chroma:
+                for comp in range(2):
+                    coeffs, _ = cavlc.decode_block(br, -1, 4)
+                    cdc_levels[r, c, comp] = coeffs
+            if cbp_chroma == 2:
+                for comp in range(2):
+                    for bi in range(4):
+                        by, bx = r * 2 + bi // 2, c * 2 + bi % 2
+                        coeffs, tc = cavlc.decode_block(
+                            br, _nc(st.chroma_nnz[comp], by, bx), 15)
+                        cac_levels[r, c, comp, bi] = coeffs
+                        st.chroma_nnz[comp, by, bx] = tc
+
+    return ParsedISlice(mode16=mode16, chroma_mode=chroma_mode,
+                        dc_levels=dc_levels, ac_levels=ac_levels,
+                        cdc_levels=cdc_levels, cac_levels=cac_levels, qp=qp,
+                        covered=covered)
 
 
 def write_pslice_mbs(bw: BitWriter, *, mv: np.ndarray,

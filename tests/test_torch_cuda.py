@@ -1,8 +1,9 @@
-"""media_tpu_torch on a CUDA device: the deblocking kernel against its plain
-version, and whole sessions on CUDA against the CPU path (which the other
-tests/test_torch_*.py hold to the JAX package).
+"""media_tpu_torch on a CUDA device: the two deblocking kernels against their
+plain versions, and whole encoder and decoder sessions on CUDA against the
+CPU path (which the other tests/test_torch_*.py hold to the JAX package).
 
-This file imports no JAX, so it runs on a CUDA host that has none:
+This file imports neither JAX nor media_tpu, so it runs on a CUDA host that
+has none:
 
     python -m pytest tests/test_torch_cuda.py -m cuda
 
@@ -13,10 +14,12 @@ import numpy as np
 import pytest
 import torch
 
-from media_tpu.utils import yuv
+from media_tpu_torch.ops import deblock_pallas as dp
 from media_tpu_torch.ops import deblock_wave as dw
 from media_tpu_torch.pipeline import deblock_apply as tda
 from media_tpu_torch.pipeline.codec import EncoderConfig, EncoderSession
+from media_tpu_torch.pipeline.decoder_tpu import TpuDecoder
+from media_tpu_torch.utils import yuv
 
 pytestmark = pytest.mark.cuda
 
@@ -52,6 +55,45 @@ def test_kernel_matches_plain(cuda_device, per_mb, R, C):
     for a, b in zip(dev, cpu):
         assert torch.equal(a.cpu(), b)
     assert any(not torch.equal(b, p) for b, p in zip(cpu, planes))
+
+
+# One MB, a short wave, and the widest wave of a 1080p picture.
+@pytest.mark.parametrize("n", [1, 7, 60])
+def test_wave_step_kernel_matches_plain(cuda_device, n):
+    rng = np.random.default_rng(n)
+    R, C = 1, n  # any grid with n MBs gives n meta rows
+    patches = [torch.as_tensor(rng.integers(0, 256, (n, s, s)) // 8 + 100,
+                               dtype=torch.uint8) for s in (20, 12, 12)]
+    bs_v = torch.as_tensor(rng.integers(0, 5, (R * 4, C * 4)), dtype=torch.int32)
+    bs_h = torch.as_tensor(rng.integers(0, 5, (R * 4, C * 4)), dtype=torch.int32)
+    meta = tda.build_meta(30, 29, bs_v, bs_h, R, C)
+    meta[:, 16:20] = torch.as_tensor(rng.integers(0, 5, (n, 4)))  # top edges
+    before = dp.deblock_wave_step.launches
+    got = dp.deblock_wave_step(*(p.to(cuda_device) for p in patches),
+                               meta.to(cuda_device))
+    torch.cuda.synchronize()
+    assert dp.deblock_wave_step.launches == before + 1
+    want = dp.deblock_wave_step(*patches, meta)
+    assert dp.deblock_wave_step.launches == before + 1  # the CPU path launches none
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+    assert any(not torch.equal(b, p) for b, p in zip(want, patches))
+
+
+@pytest.mark.parametrize("R,C", [(3, 4), (9, 5)])
+def test_wave_route_on_cuda_matches_frame_route(cuda_device, R, C):
+    rng = np.random.default_rng(R + C)
+    planes = [torch.as_tensor(rng.integers(0, 256, (R * s, C * s)) // 8 + 100,
+                              dtype=torch.uint8, device=cuda_device)
+              for s in (16, 8, 8)]
+    bs = [torch.as_tensor(rng.integers(0, 5, (R * 4, C * 4)), dtype=torch.int32,
+                          device=cuda_device) for _ in range(2)]
+    before = dp.deblock_wave_step.launches
+    a = tda.deblock_frame(*planes, 30, 29, *bs, R, C, kernel="wave")
+    assert dp.deblock_wave_step.launches == before + dw.n_waves(R, C)
+    b = tda.deblock_frame(*planes, 30, 29, *bs, R, C, kernel="frame")
+    for p, q in zip(a, b):
+        assert torch.equal(p, q)
 
 
 def test_argmin_keeps_first_minimum(cuda_device):
@@ -93,3 +135,21 @@ def test_session_on_cuda_matches_cpu(cuda_device, entropy):
     assert out[0] == out[1]
     for a, b in zip(*recon):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("kernel", ["frame", "wave"])
+def test_decode_on_cuda_matches_cpu(cuda_device, kernel):
+    frames = _clip(72, 40, 4)
+    s = EncoderSession(EncoderConfig(width=72, height=40, qp=28, gop_size=30),
+                       device=cuda_device)
+    aus = [s.encode_frame(frames[0])] + s.encode_frames(frames[1:])
+    out = []
+    for device in (cuda_device, "cpu"):
+        dec = TpuDecoder(device=device, deblock_kernel=kernel)
+        out.append([f for au in aus for f in dec.decode_annexb(au)])
+    assert len(out[0]) == len(out[1]) == 4
+    for a, b in zip(*out):
+        for p in "yuv":
+            np.testing.assert_array_equal(getattr(a, p), getattr(b, p))
+    for got, want in zip((out[0][-1].y, out[0][-1].u, out[0][-1].v), s.recon):
+        np.testing.assert_array_equal(got, want.cpu().numpy())

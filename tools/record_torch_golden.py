@@ -5,8 +5,10 @@ Runs the JAX package (the reference) on the CPU over chip_smoke.py's
 synthetic 1920x1080 clip, down the same session path chip_smoke drives
 (IDR through encode_frame, then P frames through encode_frames and through
 upload_frames + encode_frames_staged, PIPELINE_CHUNK 8, QP 30, deblocking on,
-CAVLC, one slice), and writes the sha256 of the input clip and of the access
-units to media_tpu_torch/golden_1080p.json.
+CAVLC, one slice), then decodes the IDR and the first run of P access units
+with the JAX package's TpuDecoder, and writes the sha256 of the input clip,
+of the access units and of every decoded picture's planes to
+media_tpu_torch/golden_1080p.json.
 
     JAX_PLATFORMS=cpu python tools/record_torch_golden.py
 
@@ -31,6 +33,7 @@ OUT = os.path.join(ROOT, "media_tpu_torch", "golden_1080p.json")
 def main() -> None:
     import chip_smoke as cs
     from media_tpu.pipeline.codec import EncoderConfig, EncoderSession
+    from media_tpu.pipeline.decoder_tpu import TpuDecoder
 
     t0 = time.perf_counter()
     bufs, clip_sha = cs.clip_i420()
@@ -41,6 +44,8 @@ def main() -> None:
     aus += sess.encode_frames(bufs[1 : 1 + cs.N_P])
     staged = sess.encode_frames_staged(
         sess.upload_frames(bufs[1 + cs.N_P : 1 + 2 * cs.N_P]))
+    dec = TpuDecoder()
+    decoded = [cs.planes_sha(f) for au in aus for f in dec.decode_annexb(au)]
     rec = {
         "width": cs.WIDTH, "height": cs.HEIGHT, "qp": cs.QP,
         "seed": cs.SEED, "n_p": cs.N_P, "chunk": cs.CHUNK,
@@ -48,6 +53,7 @@ def main() -> None:
         "aus_sha256": hashlib.sha256(b"".join(aus)).hexdigest(),
         "staged_sha256": hashlib.sha256(b"".join(staged)).hexdigest(),
         "au_bytes": [len(a) for a in aus + staged],
+        "decoded_sha256": decoded,
     }
     with open(OUT, "w") as f:
         json.dump(rec, f, indent=1)
