@@ -2,17 +2,24 @@
 """Smoke run of the PyTorch/CUDA port (media_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py              # needs one CUDA device
+    python3 chip_smoke.py --kernels    # phases 1-3 only, prints no result
 
 Phases, one line each; nothing is caught, any failure exits non-zero:
   1. environment: nvidia-smi name/power limit, torch/CUDA versions;
   2. build: nvcc compiles media_tpu_torch/csrc/*.cu for sm_90a (one process
      per source);
-  3. kernels == plain versions, exact equality, both timed with CUDA events:
-     the whole-frame deblocking kernel at the 1080p geometry (R=68, C=120),
-     uniform QP 22/30/36 and one per-MB QP map; the wave-step deblocking
-     kernel on the patches and meta rows of the widest 1080p wave (N=60) and
-     of N=1, QP 22/30/36; the two routes of deblock_frame against each
-     other; and torch.argmin's first-minimum rule on CUDA;
+  3. kernels == plain versions, exact equality, timed with one CUDA event
+     pair per launch on a fresh copy of the unfiltered input (median): the
+     whole-frame deblocking kernel at the 1080p geometry (R=68, C=120),
+     uniform QP 22/30/36 and one per-MB QP map, at 4K (R=135, C=240), at
+     (1,1), (1,5), (5,1), with its rows shared out among 5 persistent
+     blocks, 20 launches on one input with one digest, and compiled without
+     its filters (the floor of its dependent chain); the wave-step
+     deblocking kernel on the patches and meta rows of the widest 1080p
+     wave (N=60) and of N=1, QP 22/30/36, and in place on the planes
+     against gather -> plain step -> scatter; the routes of deblock_frame
+     against each other (whole frame, per wave as a CUDA graph, per wave
+     launch by launch); and torch.argmin's first-minimum rule on CUDA;
   4. encode path: EncoderSession(1920x1080, QP 30, CAVLC, deblock, entropy on
      the device) on its default device: an IDR via encode_frame, 8 P frames
      via encode_frames, 8 more via upload_frames + encode_frames_staged; the
@@ -136,6 +143,27 @@ def _cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _cuda_median_ms(fn, fresh, reps: int) -> float:
+    """Median milliseconds of fn(*fresh()) on the current stream: one CUDA
+    event pair around each call alone, every call on a fresh copy of its
+    input (made outside the pair), so that each call does its caller's
+    work."""
+    import torch
+
+    fn(*fresh())  # warm-up
+    pairs = []
+    for _ in range(reps):
+        args = fresh()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn(*args)
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return float(np.median([a.elapsed_time(b) for a, b in pairs]))
+
+
 def _bound(n_bytes: int, meta) -> dict:
     """The least time the card could take: bytes moved once over the memory
     rate against the line filters this meta asks for over the ALU rate."""
@@ -196,11 +224,30 @@ def phase_build():
     print(f"[build] {os.path.relpath(lib, ROOT)} nvcc {secs:.2f} s")
 
 
+def _digest(planes) -> str:
+    return hashlib.sha256(b"".join(
+        p.cpu().numpy().tobytes() for p in planes)).hexdigest()
+
+
+def _equal_planes(got, want, what: str) -> int:
+    """Raise unless the plane triples are equal; returns max |difference|."""
+    import torch
+
+    worst = 0
+    for a, b, name in zip(got, want, "yuv"):
+        err = int((a.int() - b.int()).abs().max())
+        worst = max(worst, err)
+        if not torch.equal(a, b):
+            raise AssertionError(f"{what}: plane {name} differs, max |err| "
+                                 f"{err}")
+    return worst
+
+
 def phase_kernel(smi: str) -> dict:
     import torch
 
     from media_tpu_torch.ops.deblock_wave import (
-        deblock_wave, deblock_wave_plain)
+        deblock_wave, deblock_wave_plain, launch_deblock_wave)
     from media_tpu_torch.ops.transform import chroma_qp
     from media_tpu_torch.pipeline.deblock_apply import build_meta
 
@@ -213,38 +260,91 @@ def phase_kernel(smi: str) -> dict:
                                  dtype=torch.int32) - 4).to(dev)
     cases = [(qp, None) for qp in (22, 30, 36)] + [(30, qp_map)]
     max_err = 0
-    kernel_ms = plain_ms = 0.0
-    bound = {}
+    rec = {}
+
+    def fresh():
+        return [p.clone() for p in planes]
+
     for qp, qmap in cases:
         meta = build_meta(qp, int(chroma_qp(qp)), bs_v.to(dev), bs_h.to(dev),
                           R, C, qp_map=qmap)
-        got = [p.clone() for p in planes]
+        got = fresh()
         deblock_wave(*got, meta, R, C)
-        want = [p.clone() for p in planes]
+        want = fresh()
+        timed = qmap is None and qp == 30
+        if timed:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
         deblock_wave_plain(*want, meta, R, C)
         torch.cuda.synchronize()
-        for a, b, name in zip(got, want, "yuv"):
-            err = int((a.int() - b.int()).abs().max())
-            max_err = max(max_err, err)
-            if not torch.equal(a, b):
-                raise AssertionError(f"deblock kernel != plain on {name}, "
-                                     f"qp {qp}, qp_map {qmap is not None}: "
-                                     f"max |err| {err}")
+        if timed:
+            rec["plain_ms"] = (time.perf_counter() - t0) * 1e3
+        what = f"deblock kernel vs plain, qp {qp}, qp_map {qmap is not None}"
+        max_err = max(max_err, _equal_planes(got, want, what))
         changed = sum(int((a != p).sum()) for a, p in zip(got, planes))
         if changed == 0:
             raise AssertionError("deblock test case filtered nothing")
-        if qmap is None and qp == 30:
-            work = [p.clone() for p in planes]
-            kernel_ms = _cuda_ms(lambda: deblock_wave(*work, meta, R, C), 50)
-            plain_ms = _cuda_ms(
-                lambda: deblock_wave_plain(*work, meta, R, C), 2)
-            # Planes read once and written once, meta read once.
-            bound = _bound(2 * _nbytes(*work) + _nbytes(meta), meta)
+        # The rows shared out among 5 persistent blocks: the route a grid
+        # takes that the device cannot hold at once.
+        few = fresh()
+        launch_deblock_wave(*few, meta, R, C, max_blocks=5)
+        _equal_planes(few, want, what + ", 5 persistent blocks")
         print(f"[kernel] deblock_wave qp={qp} qp_map={qmap is not None} "
-              f"equal=True samples_changed={changed}")
-    print(f"[kernel] deblock_wave 1080p (R={R}, C={C}) kernel {kernel_ms:.4f} "
-          f"ms plain {plain_ms:.4f} ms bound {bound['bound_ms']:.6f} ms by "
-          f"{bound['bound_by']} | {smi}")
+              f"equal=True (also on 5 persistent blocks) "
+              f"samples_changed={changed}")
+        if not timed:
+            continue
+        # 20 launches on fresh copies of one input: one digest (a race
+        # between rows would show as a digest that differs).
+        digests = set()
+        for _ in range(20):
+            work = fresh()
+            deblock_wave(*work, meta, R, C)
+            digests.add(_digest(work))
+        if digests != {_digest(want)}:
+            raise AssertionError(f"deblock kernel: {len(digests)} digests "
+                                 "over 20 launches on one input")
+        print(f"[kernel] deblock_wave 20 launches on one 1080p input: one "
+              f"digest {_digest(want)[:16]} == plain")
+
+        def run(filt, blocks=0):
+            return lambda *w: launch_deblock_wave(*w, meta, R, C,
+                                                  with_filter=filt,
+                                                  max_blocks=blocks)
+
+        rec["ms"] = _cuda_median_ms(run(True), fresh, 30)
+        rec["chain_floor_ms"] = _cuda_median_ms(run(False), fresh, 30)
+        few_ms = _cuda_median_ms(run(True, 5), fresh, 10)
+        # Planes read once and written once, meta read once.
+        rec.update(_bound(2 * _nbytes(*planes) + _nbytes(meta), meta))
+        print(f"[kernel] deblock_wave 1080p (R={R}, C={C}) kernel "
+              f"{rec['ms']:.4f} ms (median of 30, each on fresh planes) "
+              f"chain floor {rec['chain_floor_ms']:.4f} ms (same kernel "
+              f"without its filters) on 5 persistent blocks {few_ms:.4f} ms "
+              f"plain {rec['plain_ms']:.4f} ms bound {rec['bound_ms']:.6f} "
+              f"ms by {rec['bound_by']} | {smi}")
+
+    # Other geometries: 4K (more MB rows than the card has SMs), and the
+    # three degenerate ones.
+    for R2, C2 in ((135, 240), (1, 1), (1, 5), (5, 1)):
+        g2 = torch.Generator(device="cpu").manual_seed(R2 * C2)
+        src = _smooth_planes(R2, C2, g2, dev)
+        bv, bh = (b.to(dev) for b in _random_bs(R2, C2, g2))
+        meta = build_meta(30, int(chroma_qp(30)), bv, bh, R2, C2)
+        got = [p.clone() for p in src]
+        deblock_wave(*got, meta, R2, C2)
+        want = [p.clone() for p in src]
+        deblock_wave_plain(*want, meta, R2, C2)
+        torch.cuda.synchronize()
+        max_err = max(max_err, _equal_planes(
+            got, want, f"deblock kernel vs plain, R={R2} C={C2}"))
+        line = f"[kernel] deblock_wave R={R2} C={C2} equal=True"
+        if R2 * C2 > 1000:
+            ms = _cuda_median_ms(
+                lambda *w: launch_deblock_wave(*w, meta, R2, C2),
+                lambda: [p.clone() for p in src], 10)
+            line += f" kernel {ms:.4f} ms | {smi}"
+        print(line)
 
     # First-minimum rule of argmin on CUDA for tied int32 costs (MVs and
     # modes depend on it).
@@ -255,20 +355,21 @@ def phase_kernel(smi: str) -> dict:
         raise AssertionError("torch.argmin on CUDA does not keep the first "
                              "minimum")
     print("[kernel] argmin keeps the first minimum on CUDA ties: True")
-    return {"max_abs_err": max_err, "ms": kernel_ms, "plain_ms": plain_ms,
-            **bound}
+    return {"max_abs_err": max_err, **rec}
 
 
 def phase_kernel_step(smi: str) -> dict:
-    """The wave-step kernel against its plain version on the patches the
-    per-wave route gathers at 1080p, and that route against the whole-frame
-    one."""
+    """The wave-step kernel against its plain version, on gathered patches
+    and in place on the planes, at the waves the per-wave route runs at
+    1080p; and that route, as a CUDA graph and launch by launch, against
+    the whole-frame one."""
     import torch
 
     from media_tpu_torch.ops.deblock_pallas import (
-        deblock_wave_step, deblock_wave_step_plain)
-    from media_tpu_torch.ops.deblock_wave import (
-        n_waves, pad_top_left, wave_patch_indices)
+        deblock_wave_step, deblock_wave_step_inplace,
+        deblock_wave_step_inplace_plain, deblock_wave_step_plain,
+        wave_patch_indices)
+    from media_tpu_torch.ops.deblock_wave import n_waves, run_waves
     from media_tpu_torch.ops.transform import chroma_qp
     from media_tpu_torch.pipeline.deblock_apply import (
         build_meta, deblock_frame)
@@ -278,69 +379,93 @@ def phase_kernel_step(smi: str) -> dict:
     g = torch.Generator(device="cpu").manual_seed(11)
     planes = _smooth_planes(R, C, g, dev)
     bs_v, bs_h = (b.to(dev) for b in _random_bs(R, C, g))
-    padded = [pad_top_left(p) for p in planes]
     waves = wave_patch_indices(R, C, dev)
-    widths = [len(w[-1]) for w in waves]
+    widths = [len(w[4]) for w in waves]
     widest = widths.index(max(widths))
     if max(widths) != min(R, (C + 1) // 2) or widths[0] != 1:
         raise AssertionError(f"waves: widest {max(widths)}, first "
                              f"{widths[0]}")
 
-    def gather(k):
-        ry, cy, rc, cc, rows = waves[k]
-        return [padded[0][ry, cy], padded[1][rc, cc], padded[2][rc, cc]], rows
+    def fresh():
+        return [p.clone() for p in planes]
 
     max_err = 0
-    kernel_ms = plain_ms = 0.0
-    bound = {}
+    rec = {}
     for qp in (22, 30, 36):
         meta = build_meta(qp, int(chroma_qp(qp)), bs_v, bs_h, R, C)
         for k in (widest, 0):
-            patches, rows = gather(k)
+            # Patches in, patches out.
+            ry, cy, rc, cc, rows = waves[k][:5]
+            patches = [planes[0][ry, cy], planes[1][rc, cc],
+                       planes[2][rc, cc]]
             m = meta[rows]
             got = deblock_wave_step(*patches, m)
             want = deblock_wave_step_plain(*patches, m)
             torch.cuda.synchronize()
-            for a, b, name in zip(got, want, "yuv"):
-                err = int((a.int() - b.int()).abs().max())
-                max_err = max(max_err, err)
-                if not torch.equal(a, b):
-                    raise AssertionError(
-                        f"deblock_wave_step kernel != plain on {name}, qp "
-                        f"{qp}, N {len(rows)}: max |err| {err}")
-            changed = sum(int((a != p).sum()) for a, p in zip(got, patches))
+            what = f"deblock_wave_step vs plain, qp {qp}, N {len(rows)}"
+            max_err = max(max_err, _equal_planes(got, want, what))
+            # In place on the planes against gather -> plain -> scatter.
+            here, there = fresh(), fresh()
+            deblock_wave_step_inplace(*here, meta, R, C, k)
+            deblock_wave_step_inplace_plain(*there, meta, R, C, k)
+            torch.cuda.synchronize()
+            max_err = max(max_err, _equal_planes(here, there,
+                                                 what + ", in place"))
+            changed = sum(int((a != p).sum()) for a, p in zip(here, planes))
             # One MB at QP 22 may pass no alpha/beta test; a wave of 60 does.
             if changed == 0 and (k == widest or qp == 36):
                 raise AssertionError("wave-step test case filtered nothing")
             if qp == 30 and k == widest:
-                kernel_ms = _cuda_ms(lambda: deblock_wave_step(*patches, m),
-                                     200)
-                plain_ms = _cuda_ms(
-                    lambda: deblock_wave_step_plain(*patches, m), 5)
+                rec["ms"] = _cuda_median_ms(
+                    lambda *w: deblock_wave_step_inplace(*w, meta, R, C, k),
+                    fresh, 50)
+                rec["plain_ms"] = _cuda_median_ms(
+                    lambda *w: deblock_wave_step_inplace_plain(
+                        *w, meta, R, C, k), fresh, 3)
+                rec["patch_form_ms"] = _cuda_median_ms(
+                    lambda: deblock_wave_step(*patches, m), lambda: (), 50)
                 # Patches read once and written once, meta rows read once.
-                bound = _bound(2 * _nbytes(*patches) + _nbytes(m), m)
+                rec.update(_bound(2 * _nbytes(*patches) + _nbytes(m), m))
             print(f"[kernel] deblock_wave_step qp={qp} N={len(rows)} "
-                  f"equal=True samples_changed={changed}")
+                  f"patches equal=True in place equal=True "
+                  f"samples_changed={changed}")
     print(f"[kernel] deblock_wave_step N={max(widths)} (widest wave of "
-          f"R={R}, C={C}) kernel "
-          f"{kernel_ms:.4f} ms plain {plain_ms:.4f} ms bound "
-          f"{bound['bound_ms']:.6f} ms by {bound['bound_by']} | {smi}")
+          f"R={R}, C={C}) in place {rec['ms']:.4f} ms a launch (median of "
+          f"50, each on fresh planes) on gathered patches "
+          f"{rec['patch_form_ms']:.4f} ms plain {rec['plain_ms']:.4f} ms "
+          f"bound {rec['bound_ms']:.6f} ms by {rec['bound_by']} | {smi}")
 
-    # The two routes of deblock_frame on one 1080p frame: same planes.
+    # The routes over one 1080p frame: the same planes three ways.
     qp = 30
+    meta = build_meta(qp, int(chroma_qp(qp)), bs_v, bs_h, R, C)
     args = (*planes, qp, int(chroma_qp(qp)), bs_v, bs_h, R, C)
     a = deblock_frame(*args, kernel="frame")
+    before = deblock_wave_step.launches
     b = deblock_frame(*args, kernel="wave")
-    for p, q, name in zip(a, b, "yuv"):
-        if not torch.equal(p, q):
-            raise AssertionError(f"deblock_frame routes differ on {name}")
+    if deblock_wave_step.launches - before != n_waves(R, C):
+        raise AssertionError("route wave: "
+                             f"{deblock_wave_step.launches - before} launches")
+    def launch_by_launch(*w):
+        for k in range(n_waves(R, C)):
+            deblock_wave_step_inplace(*w, meta, R, C, k)
+
+    eager = fresh()
+    launch_by_launch(*eager)
+    _equal_planes(b, a, "deblock_frame route wave (graph) vs route frame")
+    _equal_planes(eager, a, "wave steps launch by launch vs route frame")
     t_frame = _cuda_ms(lambda: deblock_frame(*args, kernel="frame"), 10)
-    t_wave = _cuda_ms(lambda: deblock_frame(*args, kernel="wave"), 2)
-    print(f"[kernel] deblock_frame R={R} C={C}, meta build included: route frame "
-          f"{t_frame:.3f} ms (1 launch), route wave {t_wave:.3f} ms "
-          f"({n_waves(R, C)} launches) | {smi}")
-    return {"max_abs_err": max_err, "ms": kernel_ms, "plain_ms": plain_ms,
-            **bound}
+    t_wave = _cuda_ms(lambda: deblock_frame(*args, kernel="wave"), 10)
+    t_graph = _cuda_median_ms(lambda *w: run_waves(*w, meta, R, C), fresh, 10)
+    t_eager = _cuda_median_ms(launch_by_launch, fresh, 10)
+    print(f"[kernel] deblock_frame R={R} C={C}, meta build included: route "
+          f"frame {t_frame:.3f} ms (1 launch), route wave {t_wave:.3f} ms "
+          f"({n_waves(R, C)} launches as one CUDA graph) | {smi}")
+    print(f"[kernel] run_waves R={R} C={C}, the {n_waves(R, C)} in-place "
+          f"launches alone: as one CUDA graph (copies in and out included) "
+          f"{t_graph:.3f} ms, launch by launch {t_eager:.3f} ms, all three "
+          f"routes equal | {smi}")
+    rec.update(route_wave_graph_ms=t_graph, route_wave_eager_ms=t_eager)
+    return {"max_abs_err": max_err, **rec}
 
 
 def _stage_split(sess, frame_buf, smi: str):
@@ -351,8 +476,9 @@ def _stage_split(sess, frame_buf, smi: str):
     from media_tpu_torch.entropy.device_cavlc import pack_pslice_device
     from media_tpu_torch.ops.pad import edge_pad
     from media_tpu_torch.ops.transform import chroma_qp
+    from media_tpu_torch.ops.deblock_wave import launch_deblock_wave
     from media_tpu_torch.pipeline.deblock_apply import (
-        deblock_pframe_from_symbols)
+        build_meta, deblock_pframe_from_symbols, pframe_bs_grids)
     from media_tpu_torch.pipeline.pframe_core import (
         INTERP_HALO, local_pframe_core, unpack_symbols_device)
 
@@ -382,6 +508,12 @@ def _stage_split(sess, frame_buf, smi: str):
     t_deblock = _cuda_ms(lambda: deblock_pframe_from_symbols(
         out["recon_y"], out["recon_u"], out["recon_v"], out["symbols"], qp,
         qp_c, R, C), 3)
+    # The whole-frame kernel alone on this frame's own planes and strengths.
+    meta = build_meta(qp, qp_c, *pframe_bs_grids(out["symbols"], R, C), R, C)
+    t_kernel = _cuda_median_ms(
+        lambda *w: launch_deblock_wave(*w, meta, R, C),
+        lambda: [out[k].to(torch.uint8, copy=True).contiguous() for k in
+                 ("recon_y", "recon_u", "recon_v")], 20)
     stream, bits = box["pack"]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -390,7 +522,9 @@ def _stage_split(sess, frame_buf, smi: str):
     sess._pslice_au_packed(words, nbits)
     t_host = (time.perf_counter() - t0) * 1e3
     print(f"[stages] {WIDTH}x{HEIGHT} P frame ms: p_core {t_core:.3f} cavlc_pack "
-          f"{t_pack:.3f} deblock {t_deblock:.3f} host_au {t_host:.3f} | {smi}")
+          f"{t_pack:.3f} deblock {t_deblock:.3f} (of which the kernel, median "
+          f"of 20 on this frame's planes, {t_kernel:.4f}) host_au "
+          f"{t_host:.3f} | {smi}")
 
 
 def phase_main_path(smi: str, golden: dict):
@@ -595,6 +729,8 @@ def main() -> None:
     phase_build()
     krec = phase_kernel(smi)
     krec_step = phase_kernel_step(smi)
+    if "--kernels" in sys.argv[1:]:
+        return
     enc_launches, aus, recon_idr, recon_run = phase_main_path(smi, golden)
     dec_launches, step_launches = phase_decode_path(smi, golden, aus,
                                                     recon_idr, recon_run)

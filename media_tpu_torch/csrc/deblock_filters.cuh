@@ -1,9 +1,19 @@
-// H.264 deblocking line filters (spec 8.7.2.3 / 8.7.2.4), shared by the
+// H.264 deblocking filters (spec 8.7.2.3 / 8.7.2.4), shared by the
 // whole-frame kernel (deblock_wave.cu) and the per-wave kernel
-// (deblock_wave_step.cu) so the two cannot drift apart. Each filters one
-// line of 8-bit samples across one edge in place; the caller has already
-// skipped edges with bS 0. They are the per-line form of
-// media_tpu_torch/ops/deblock.py:filter_luma_taps / filter_chroma_taps.
+// (deblock_wave_step.cu) so the two cannot drift apart.
+//
+// The line filters each filter one line of 8-bit samples across one edge in
+// place; the caller has already skipped edges with bS 0. They are the
+// per-line form of media_tpu_torch/ops/deblock.py:filter_luma_taps /
+// filter_chroma_taps.
+//
+// The macroblock passes below them run all edges of one direction of one
+// sample line of a macroblock patch held in shared memory: a 20x20 luma
+// patch (pitch 20) or a 12x12 chroma patch (pitch 12), the MB's own samples
+// at [4:, 4:] and 4 samples of its left and top neighbours around them, with
+// the MB's meta row (ops/deblock.py:META_COLS). With these pitches the 16
+// (8) threads of a vertical pass hit distinct banks. The vertical pass must
+// be complete for the whole patch before the horizontal pass starts.
 
 #pragma once
 
@@ -13,6 +23,7 @@
 namespace media_deblock {
 
 constexpr int kMetaCols = 120;  // ops/deblock.py:META_COLS
+constexpr int kLuma = 20, kChroma = 12;  // patch sizes and pitches
 
 __device__ __forceinline__ int clip3(int lo, int hi, int x) {
   return min(max(x, lo), hi);
@@ -72,6 +83,55 @@ __device__ __forceinline__ void filter_chroma_line(uint8_t* q, int step,
   } else {
     q[-step] = (2 * p1 + p0 + q1 + 2) >> 2;
     q[0] = (2 * q1 + q0 + p1 + 2) >> 2;
+  }
+}
+
+// Luma row `t` (0-15) of the MB: its 4 vertical edges, left to right. The
+// MB's left edge is filtered only where the MB has a left neighbour.
+__device__ __forceinline__ void luma_vertical(uint8_t* sy, const int* m, int t,
+                                              bool has_left) {
+  uint8_t* row = sy + (4 + t) * kLuma + 4;
+  for (int e = 0; e < 4; ++e) {
+    const int bs = m[e * 4 + t / 4];
+    if (bs == 0 || (e == 0 && !has_left)) continue;
+    filter_luma_line(row + 4 * e, 1, bs, m[96 + 2 * e], m[97 + 2 * e],
+                     m[32 + e * 4 + t / 4]);
+  }
+}
+
+// Luma column `t` (0-15) of the MB: its 4 horizontal edges, top to bottom.
+__device__ __forceinline__ void luma_horizontal(uint8_t* sy, const int* m,
+                                                int t, bool has_top) {
+  uint8_t* col = sy + 4 * kLuma + 4 + t;
+  for (int e = 0; e < 4; ++e) {
+    const int bs = m[16 + e * 4 + t / 4];
+    if (bs == 0 || (e == 0 && !has_top)) continue;
+    filter_luma_line(col + 4 * e * kLuma, kLuma, bs, m[104 + 2 * e],
+                     m[105 + 2 * e], m[48 + e * 4 + t / 4]);
+  }
+}
+
+// Chroma row `cl` (0-7) of one chroma plane of the MB: 2 vertical edges.
+__device__ __forceinline__ void chroma_vertical(uint8_t* sc, const int* m,
+                                                int cl, bool has_left) {
+  uint8_t* row = sc + (4 + cl) * kChroma + 4;
+  for (int e = 0; e < 2; ++e) {
+    const int bs = m[64 + e * 4 + cl / 2];
+    if (bs == 0 || (e == 0 && !has_left)) continue;
+    filter_chroma_line(row + 4 * e, 1, bs, m[112 + 2 * e], m[113 + 2 * e],
+                       m[80 + e * 4 + cl / 2]);
+  }
+}
+
+// Chroma column `cl` (0-7) of one chroma plane: 2 horizontal edges.
+__device__ __forceinline__ void chroma_horizontal(uint8_t* sc, const int* m,
+                                                  int cl, bool has_top) {
+  uint8_t* col = sc + 4 * kChroma + 4 + cl;
+  for (int e = 0; e < 2; ++e) {
+    const int bs = m[72 + e * 4 + cl / 2];
+    if (bs == 0 || (e == 0 && !has_top)) continue;
+    filter_chroma_line(col + 4 * e * kChroma, kChroma, bs, m[116 + 2 * e],
+                       m[117 + 2 * e], m[88 + e * 4 + cl / 2]);
   }
 }
 

@@ -86,10 +86,12 @@ def load() -> ctypes.CDLL:
     """The kernel library, built on first use, with its C signatures."""
     lib = ctypes.CDLL(build()[0])
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.deblock_wave_launch.argtypes = [vp, vp, vp, vp, ci, ci, vp]
+    lib.deblock_wave_launch.argtypes = [vp] * 5 + [ci] * 4 + [vp]
     lib.deblock_wave_launch.restype = ci
     lib.deblock_wave_step_launch.argtypes = [vp] * 7 + [ci, vp]
     lib.deblock_wave_step_launch.restype = ci
+    lib.deblock_wave_step_inplace_launch.argtypes = [vp] * 4 + [ci] * 3 + [vp]
+    lib.deblock_wave_step_inplace_launch.restype = ci
     lib.media_cuda_error_string.argtypes = [ci]
     lib.media_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -53,6 +53,30 @@ TC0_TABLE = np.array(
 META_COLS = 120
 
 
+def check_planes(y, u, v, meta, R: int, C: int) -> None:
+    """Raise unless y (16R, 16C) and u/v (8R, 8C) are contiguous uint8 planes
+    and meta is a contiguous int32 (R*C, META_COLS) tensor, all on y's
+    device: what the deblocking kernels take."""
+    for name, p, size in (("y", y, 16), ("u", u, 8), ("v", v, 8)):
+        if p.dtype != torch.uint8 or p.shape != (R * size, C * size):
+            raise ValueError(f"{name}: expected uint8 ({R * size}, "
+                             f"{C * size}), got {p.dtype} {tuple(p.shape)}")
+        if not p.is_contiguous() or p.device != y.device:
+            raise ValueError(f"{name}: must be contiguous on {y.device}")
+    if (meta.dtype != torch.int32 or meta.shape != (R * C, META_COLS)
+            or not meta.is_contiguous() or meta.device != y.device):
+        raise ValueError(f"meta: expected contiguous int32 ({R * C}, "
+                         f"{META_COLS}) on {y.device}")
+
+
+def check_aligned(y, u, v, meta) -> None:
+    """Raise unless the tensors start at multiples of 16 bytes, as the CUDA
+    kernels' vector loads need (every tensor that owns its storage does)."""
+    for name, p in (("y", y), ("u", u), ("v", v), ("meta", meta)):
+        if p.data_ptr() % 16:
+            raise ValueError(f"{name}: storage must be 16-byte aligned")
+
+
 def filter_luma_taps(p3, p2, p1, p0, q0, q1, q2, q3, bs, alpha, beta, tc0):
     """Tap-wise luma edge filter (spec 8.7.2.3/8.7.2.4). All args are
     broadcastable int32 tensors (or ints); returns (p2', p1', p0', q0', q1',

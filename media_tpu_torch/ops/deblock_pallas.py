@@ -1,5 +1,4 @@
-"""One deblocking wave step on gathered MB patches: the CUDA kernel and its
-plain twin.
+"""One deblocking wave step: the CUDA kernel (two entries) and its plain twin.
 
 Replaces media_tpu/ops/deblock_pallas.py:deblock_wave_pallas, the TPU kernel
 that filters the N independent macroblocks of ONE wave of in-loop deblocking
@@ -14,24 +13,34 @@ scalars; the meta row also allows per-MB thresholds.
 
 Nothing on an H100 bounds this kernel: a wave is at most 60 MBs at 1080p,
 about 1.2 KB in and 0.7 KB out per MB, far under a microsecond of memory
-time. Its cost is the launch itself and the gathers and scatters around it,
-254 times per 1080p picture. The design (csrc/deblock_wave_step.cu): one
-thread block of one warp per MB patch, patches and meta row staged in shared
-memory, one thread per sample line (16 luma, 8 U, 8 V), vertical edges,
-barrier, horizontal edges, write back.
+time. Its cost is the launch itself, 254 times per 1080p picture, and what
+the host does around each launch. So the kernel (csrc/deblock_wave_step.cu)
+has a second entry that works in place on the raster planes,
+`deblock_wave_step_inplace`: the MBs (r, c) of wave k = 2r + c are read from
+the planes and written back by the kernel, row 0 and column 0 guarded
+instead of padded, which leaves the host one launch per wave and nothing
+else (ops/deblock_wave.py:run_waves replays the launches of a picture as
+one CUDA graph). `deblock_wave_step` on gathered patches is the form of the
+TPU kernel and of the plain version. Either way: one thread block of one
+warp per MB, patches and meta row staged in shared memory, one thread per
+sample line (16 luma, 8 U, 8 V), vertical edges, barrier, horizontal edges,
+write back.
 
 CUDA C++ and not Triton: the work is data-dependent branching on short lines
-of bytes with a barrier between two phases, and it shares its line filters
+of bytes with a barrier between two phases, and it shares its filters
 (csrc/deblock_filters.cuh) with the whole-frame kernel.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
-from .deblock import META_COLS, filter_chroma_taps, filter_luma_taps
+from .deblock import (
+    META_COLS, check_aligned, check_planes, filter_chroma_taps,
+    filter_luma_taps)
 
 
 def _luma_edges(patch, m):
@@ -146,3 +155,103 @@ def deblock_wave_step(yp, up, vp, meta):
 
 
 deblock_wave_step.launches = 0
+
+
+def n_waves(R: int, C: int) -> int:
+    return 2 * (R - 1) + C
+
+
+def wave_rows(k: int, R: int, C: int) -> range:
+    """The MB rows r of wave k = 2r + c, ascending (a wave of a picture one
+    MB wide can be empty)."""
+    return range(max(0, -(-(k - C + 1) // 2)), min(R - 1, k // 2) + 1)
+
+
+def wave_mbs(k: int, R: int, C: int, device):
+    """(r, c) long tensors of the MBs in wave k = 2r + c, r ascending."""
+    rows = wave_rows(k, R, C)
+    r = torch.arange(rows.start, rows.stop, device=device)
+    return r, k - 2 * r
+
+
+@functools.lru_cache(maxsize=8)
+def wave_patch_indices(R: int, C: int, device: torch.device):
+    """Per wave: the row and column indices of its MBs' 20x20 luma and 12x12
+    chroma patches in the raster planes, the MBs' rows of the meta tensor,
+    and the slices of the wave's MBs that have a top / a left neighbour (r
+    ascends and c descends along a wave, so only the first MB can be in row
+    0 and only the last in column 0). Indices above or left of the picture
+    are clamped to 0: such samples are gathered but never filtered against
+    (their edges have bS 0) and never scattered back. Built once per
+    geometry and device."""
+    ar20 = torch.arange(20, device=device) - 4
+    ar12 = torch.arange(12, device=device) - 4
+    out = []
+    for k in range(n_waves(R, C)):
+        r, c = wave_mbs(k, R, C, device)
+        rows = wave_rows(k, R, C)
+        n = len(rows)
+        out.append(((r[:, None] * 16 + ar20).clamp(min=0)[:, :, None],
+                    (c[:, None] * 16 + ar20).clamp(min=0)[:, None, :],
+                    (r[:, None] * 8 + ar12).clamp(min=0)[:, :, None],
+                    (c[:, None] * 8 + ar12).clamp(min=0)[:, None, :],
+                    r * C + c,
+                    slice(int(n > 0 and rows[0] == 0), n),
+                    slice(0, n - int(n > 0 and k == 2 * rows[-1]))))
+    return out
+
+
+def deblock_wave_step_inplace_plain(y, u, v, meta, R: int, C: int,
+                                    k: int) -> None:
+    """Plain PyTorch version of the in-place wave step: gather the patches
+    of wave k's MBs from the planes, one plain step, scatter back each MB's
+    own block, the 4 columns left of it and the 4 rows above it where the MB
+    has that neighbour. The patches of one wave are disjoint, so no scatter
+    index repeats."""
+    ry, cy, rc, cc, rows, top, left = wave_patch_indices(R, C, y.device)[k]
+    outs = deblock_wave_step_plain(y[ry, cy], u[rc, cc], v[rc, cc], meta[rows])
+    for p, out, ri, ci in zip((y, u, v), outs, (ry, rc, rc), (cy, cc, cc)):
+        p[ri[:, 4:], ci[:, :, 4:]] = out[:, 4:, 4:]
+        p[ri[left, 4:], ci[left, :, :4]] = out[left, 4:, :4]
+        p[ri[top, :4], ci[top, :, 4:]] = out[top, :4, 4:]
+
+
+def launch_wave_step_inplace(y, u, v, meta, R: int, C: int, k: int) -> int:
+    """Launch the in-place entry of the kernel for wave k on the current
+    stream: no check, no count (run_waves captures it into a CUDA graph).
+    Returns the number of launches: 1, or 0 for a wave without MBs."""
+    from .. import kernels
+
+    if not wave_rows(k, R, C):
+        return 0
+
+    ptr = ctypes.c_void_p
+    err = kernels.load().deblock_wave_step_inplace_launch(
+        ptr(y.data_ptr()), ptr(u.data_ptr()), ptr(v.data_ptr()),
+        ptr(meta.data_ptr()), ctypes.c_int(R), ctypes.c_int(C),
+        ctypes.c_int(k), ptr(torch.cuda.current_stream(y.device).cuda_stream))
+    if err:
+        raise RuntimeError(f"deblock_wave_step in-place kernel launch "
+                           f"failed: {kernels.error_string(err)}")
+    return 1
+
+
+def deblock_wave_step_inplace(y, u, v, meta, R: int, C: int, k: int) -> None:
+    """One deblocking wave step in place: filters the MBs (r, c) of wave
+    k = 2r + c where they lie in the raster planes.
+
+    y: (16R, 16C), u/v: (8R, 8C) contiguous uint8 planes; meta: (R*C,
+    META_COLS) contiguous int32, all on one device; 0 <= k < n_waves(R, C).
+    Waves must be run in ascending order. On CUDA tensors this launches the
+    kernel's in-place entry (csrc/deblock_wave_step.cu) on the current
+    stream and counts the launch in `deblock_wave_step.launches`; on CPU
+    tensors it runs the plain version."""
+    check_planes(y, u, v, meta, R, C)
+    if not 0 <= k < n_waves(R, C):
+        raise ValueError(f"wave {k} outside 0..{n_waves(R, C) - 1}")
+    if y.device.type == "cpu":
+        deblock_wave_step_inplace_plain(y, u, v, meta, R, C, k)
+        return
+    check_aligned(y, u, v, meta)
+    deblock_wave_step.launches += launch_wave_step_inplace(y, u, v, meta, R,
+                                                           C, k)

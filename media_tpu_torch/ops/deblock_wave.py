@@ -14,17 +14,25 @@ then all horizontal edges (chroma likewise). So (r, c) depends on (r, c-1),
 their working patches are disjoint. The 2R+C-2 waves (254 at 1080p) must run
 in order.
 
-What bounds the kernel on an H100 is the latency of that dependent wave
-chain, not bytes or arithmetic: a 1080p frame is 3 MB and the filter math is
-a few hundred operations per sample line. The design
-(csrc/deblock_wave.cu): one persistent thread block walks the waves in order
-and indexes MB (r, c) of wave k directly in the raster planes (no wave-major
-shear, which existed for the TPU's DMA); one thread filters one line (row or
-column) of one MB for all four edges, so only two __syncthreads() separate
-the phases of a wave; the frame stays in L2. Reads at c = 0 / r = 0 are
-guarded (bS is 0 there). That uses one SM of 132. Later work should measure
-a cooperative grid with a grid-wide barrier per wave, and one launch per
-wave captured in a CUDA graph, against it.
+What bounds the kernel on an H100 is that chain of dependent steps, not
+bytes or arithmetic: a 1080p frame is 3 MB and the filter math is a few
+hundred operations per sample line. The design (csrc/deblock_wave.cu) is a
+dataflow wavefront: one thread block per MB row, all rows in flight, each
+walking its row left to right with its working patches in shared memory.
+Row r may filter MB c once row r-1 has finished MB c+1 (its last MB: the
+whole row). Row r-1 does not store its last sample rows to the planes: it
+hands them to row r through a mailbox in device memory whose 8-byte slots
+carry 4 samples and a tag, stored and polled as one word past L1, so the
+hand-over needs no fence and no flag, and row r stores those rows once it has
+filtered them. The MB's own samples and its meta row depend on nothing and
+are prefetched. A grid larger than the device holds at once is serialised
+over persistent blocks (row r waits only for row r-1, so rows taken in
+ascending order cannot deadlock). The mailbox is scratch that this module
+keeps per device, stream and geometry; the kernel leaves it zero.
+
+`run_waves` is the other route over the same wavefront: one in-place launch
+of the wave-step kernel (ops/deblock_pallas.py) per wave, replayed on CUDA
+as one CUDA graph per geometry.
 """
 
 from __future__ import annotations
@@ -34,80 +42,98 @@ import functools
 
 import torch
 
-from .deblock import META_COLS
-from .deblock_pallas import deblock_wave_step_plain
+from .deblock import META_COLS, check_aligned, check_planes as _check
+from .deblock_pallas import (
+    deblock_wave_step, deblock_wave_step_inplace_plain,
+    launch_wave_step_inplace, n_waves, wave_mbs)
+
+__all__ = ["deblock_wave", "deblock_wave_plain", "launch_deblock_wave",
+           "n_waves", "run_waves", "wave_mbs"]
 
 
-def n_waves(R: int, C: int) -> int:
-    return 2 * (R - 1) + C
+class _WaveGraph:
+    """The wave steps of one (R, C) picture as one CUDA graph on planes and
+    a meta tensor of its own."""
 
+    def __init__(self, R: int, C: int, device: torch.device):
+        from .. import kernels
 
-def wave_mbs(k: int, R: int, C: int, device):
-    """(r, c) long tensors of the MBs in wave k = 2r + c, r ascending."""
-    lo = max(0, -(-(k - C + 1) // 2))
-    hi = min(R - 1, k // 2)
-    r = torch.arange(lo, hi + 1, device=device)
-    return r, k - 2 * r
+        kernels.load()  # a build must not fall into the capture
+        self.planes = [torch.zeros((R * s, C * s), dtype=torch.uint8,
+                                   device=device) for s in (16, 8, 8)]
+        self.meta = torch.zeros((R * C, META_COLS), dtype=torch.int32,
+                                device=device)
+        self.n = 0  # kernel nodes in the graph
+        with torch.cuda.device(device):
+            self.graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.graph):
+                for k in range(n_waves(R, C)):
+                    self.n += launch_wave_step_inplace(*self.planes, self.meta,
+                                                       R, C, k)
+
+    def run(self, y, u, v, meta) -> None:
+        for dst, src in zip((*self.planes, self.meta), (y, u, v, meta)):
+            dst.copy_(src)
+        self.graph.replay()
+        for dst, src in zip((y, u, v), self.planes):
+            dst.copy_(src)
+        deblock_wave_step.launches += self.n  # the kernel nodes replayed
 
 
 @functools.lru_cache(maxsize=8)
-def wave_patch_indices(R: int, C: int, device: torch.device):
-    """Per wave: the (rows, cols) index pairs of its MBs' 20x20 luma and
-    12x12 chroma patches in planes padded by 4 at the top and left, and the
-    MBs' rows of the meta tensor. Built once per geometry and device."""
-    ar20 = torch.arange(20, device=device)
-    ar12 = torch.arange(12, device=device)
-    out = []
-    for k in range(n_waves(R, C)):
-        r, c = wave_mbs(k, R, C, device)
-        out.append(((r[:, None] * 16 + ar20)[:, :, None],
-                    (c[:, None] * 16 + ar20)[:, None, :],
-                    (r[:, None] * 8 + ar12)[:, :, None],
-                    (c[:, None] * 8 + ar12)[:, None, :], r * C + c))
-    return out
+def _wave_graph(R: int, C: int, device: torch.device) -> _WaveGraph:
+    return _WaveGraph(R, C, device)
 
 
-def pad_top_left(plane):
-    """The plane with 4 rows and columns of zeros at the top and left, so
-    that the MBs of row 0 and column 0 have patches too. Border edges have
-    bS 0, so the padding is never filtered against."""
-    out = torch.zeros((plane.shape[0] + 4, plane.shape[1] + 4),
-                      dtype=plane.dtype, device=plane.device)
-    out[4:, 4:] = plane
-    return out
-
-
-def run_waves(y, u, v, meta, R: int, C: int, step) -> None:
+def run_waves(y, u, v, meta, R: int, C: int) -> None:
     """Filter the uint8 planes y (16R, 16C) and u/v (8R, 8C) in place, one
-    call of `step(yp, up, vp, meta_rows)` per wave: a gather of the patches
-    of the wave's MBs, the step, a scatter back. Only MBs that exist are
-    gathered, and their patches are disjoint, so no scatter index repeats."""
-    yp, up, vp = (pad_top_left(p) for p in (y, u, v))
-    for ry, cy, rc, cc, rows in wave_patch_indices(R, C, y.device):
-        yp[ry, cy], up[rc, cc], vp[rc, cc] = step(
-            yp[ry, cy], up[rc, cc], vp[rc, cc], meta[rows])
-    y.copy_(yp[4:, 4:])
-    u.copy_(up[4:, 4:])
-    v.copy_(vp[4:, 4:])
+    in-place wave step (ops/deblock_pallas.py) per wave, in order. On CUDA
+    the launches of a picture are captured once per geometry and device as
+    a CUDA graph and replayed (copy in, one replay, copy out; each replayed
+    kernel counts in `deblock_wave_step.launches`), which takes a third of
+    the time of launching them one by one on an H100. On the CPU each step
+    is the plain version."""
+    _check(y, u, v, meta, R, C)
+    if y.device.type == "cpu":
+        deblock_wave_plain(y, u, v, meta, R, C)
+    else:
+        _wave_graph(R, C, y.device).run(y, u, v, meta)
 
 
 def deblock_wave_plain(y, u, v, meta, R: int, C: int) -> None:
     """Plain PyTorch version: filters the uint8 planes in place, one
-    vectorised plain wave step per wave."""
-    run_waves(y, u, v, meta, R, C, deblock_wave_step_plain)
+    vectorised plain wave step per wave, on the tensors' device."""
+    for k in range(n_waves(R, C)):
+        deblock_wave_step_inplace_plain(y, u, v, meta, R, C, k)
 
 
-def _check(y, u, v, meta, R: int, C: int) -> None:
-    for name, p, size in (("y", y, 16), ("u", u, 8), ("v", v, 8)):
-        if p.dtype != torch.uint8 or p.shape != (R * size, C * size):
-            raise ValueError(f"{name}: expected uint8 ({R * size}, "
-                             f"{C * size}), got {p.dtype} {tuple(p.shape)}")
-        if not p.is_contiguous() or p.device != y.device:
-            raise ValueError(f"{name}: must be contiguous on {y.device}")
-    if (meta.dtype != torch.int32 or meta.shape != (R * C, META_COLS)
-            or not meta.is_contiguous() or meta.device != y.device):
-        raise ValueError(f"meta: expected contiguous int32 ({R * C}, "
-                         f"{META_COLS}) on {y.device}")
+@functools.lru_cache(maxsize=8)
+def _mailbox(device: torch.device, stream: int, R: int, C: int):
+    """The kernel's mailbox between MB rows, 24 slots of 8 bytes per MB: zero
+    at the first launch, and the kernel leaves it zero. One per stream, so
+    that launches on two streams do not share slots."""
+    return torch.zeros(24 * R * C, dtype=torch.int64, device=device)
+
+
+def launch_deblock_wave(y, u, v, meta, R: int, C: int, with_filter: bool = True,
+                        max_blocks: int = 0) -> None:
+    """Launch the whole-frame kernel on the current stream: no check, no
+    count. with_filter=False runs the kernel's hand-overs, loads and stores
+    without its edge filters (the floor its dependent chain sets);
+    max_blocks > 0 caps the grid, so that fewer persistent blocks share the
+    rows."""
+    from .. import kernels
+
+    ptr = ctypes.c_void_p
+    stream = torch.cuda.current_stream(y.device).cuda_stream
+    err = kernels.load().deblock_wave_launch(
+        ptr(y.data_ptr()), ptr(u.data_ptr()), ptr(v.data_ptr()),
+        ptr(meta.data_ptr()), ptr(_mailbox(y.device, stream, R, C).data_ptr()),
+        ctypes.c_int(R), ctypes.c_int(C), ctypes.c_int(with_filter),
+        ctypes.c_int(max_blocks), ptr(stream))
+    if err:
+        raise RuntimeError(f"deblock_wave kernel launch failed: "
+                           f"{kernels.error_string(err)}")
 
 
 def deblock_wave(y, u, v, meta, R: int, C: int) -> None:
@@ -119,17 +145,8 @@ def deblock_wave(y, u, v, meta, R: int, C: int) -> None:
     if y.device.type == "cpu":
         deblock_wave_plain(y, u, v, meta, R, C)
         return
-    from .. import kernels
-
-    lib = kernels.load()
-    err = lib.deblock_wave_launch(
-        ctypes.c_void_p(y.data_ptr()), ctypes.c_void_p(u.data_ptr()),
-        ctypes.c_void_p(v.data_ptr()), ctypes.c_void_p(meta.data_ptr()),
-        ctypes.c_int(R), ctypes.c_int(C),
-        ctypes.c_void_p(torch.cuda.current_stream(y.device).cuda_stream))
-    if err:
-        raise RuntimeError(f"deblock_wave kernel launch failed: "
-                           f"{kernels.error_string(err)}")
+    check_aligned(y, u, v, meta)
+    launch_deblock_wave(y, u, v, meta, R, C)
     deblock_wave.launches += 1
 
 

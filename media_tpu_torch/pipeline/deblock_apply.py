@@ -5,9 +5,10 @@ bS grids and the QP (uniform, or per MB) into the per-MB meta tensor that
 ops/deblock_wave.py consumes, exactly as the JAX package fills its meta
 columns; `deblock_frame` then runs the wavefront by one of two routes:
 kernel="frame", the whole frame in one call of ops/deblock_wave.py, or
-kernel="wave", one call of ops/deblock_pallas.py per wave on gathered MB
-patches (the twin of the JAX package's _deblock_frame_gather under
-MEDIA_TPU_DEBLOCK_KERNEL=pallas). Either way a CUDA tensor goes through the
+kernel="wave", one in-place wave step of ops/deblock_pallas.py per wave
+(the twin of the JAX package's _deblock_frame_gather under
+MEDIA_TPU_DEBLOCK_KERNEL=pallas; the gathers and scatters of that route
+happen inside the kernel here). Either way a CUDA tensor goes through the
 CUDA kernel and a CPU tensor through its plain version.
 """
 
@@ -19,7 +20,6 @@ import numpy as np
 import torch
 
 from ..ops import deblock as db
-from ..ops.deblock_pallas import deblock_wave_step
 from ..ops.deblock_wave import deblock_wave, run_waves
 from ..ops.transform import CHROMA_QP_TABLE
 from .pframe_core import unpack_symbols_device
@@ -102,7 +102,7 @@ def deblock_frame(y, u, v, qp: int, qp_c: int, bs_v, bs_h, R: int, C: int,
     y: (16R, 16C), u/v: (8R, 8C) planes of 8-bit samples (any integer
     dtype); bs_v/bs_h: (4R, 4C) strengths; qp_map: optional (R, C) per-MB
     luma QP (see build_meta). kernel: "frame" runs the whole-frame wavefront
-    (ops/deblock_wave.py), "wave" one wave step per wave on gathered patches
+    (ops/deblock_wave.py), "wave" one in-place wave step per wave
     (ops/deblock_pallas.py; uniform QP only, as in the JAX package). On CUDA
     tensors either launches its CUDA kernel; on CPU tensors its plain
     version. Every filter output stays in 0..255, so filtering uint8 planes
@@ -117,7 +117,7 @@ def deblock_frame(y, u, v, qp: int, qp_c: int, bs_v, bs_h, R: int, C: int,
     meta = build_meta(qp, qp_c, bs_v, bs_h, R, C, qp_map=qp_map)
     y, u, v = (p.to(torch.uint8, copy=True).contiguous() for p in (y, u, v))
     if kernel == "wave":
-        run_waves(y, u, v, meta, R, C, deblock_wave_step)
+        run_waves(y, u, v, meta, R, C)
     else:
         deblock_wave(y, u, v, meta, R, C)
     return y, u, v
@@ -134,16 +134,22 @@ def _zero_slice_boundaries(bs_h, slice_starts):
     return bs_h
 
 
+def pframe_bs_grids(symbols, R: int, C: int, slice_starts: tuple = ()):
+    """The (4R, 4C) bS grids of a P picture from its packed symbol tensor
+    (on the device)."""
+    mv, luma, _cdc, _cac = unpack_symbols_device(symbols)
+    blk_nnz = (luma != 0).sum(dim=3)  # (R, C, 16) raster blocks
+    nnz_grid = blk_nnz.reshape(R, C, 4, 4).transpose(1, 2).reshape(R * 4, C * 4)
+    bs_v, bs_h = db.inter_bs_grids(nnz_grid, mv, R, C)
+    return bs_v, _zero_slice_boundaries(bs_h, slice_starts)
+
+
 def deblock_pframe_from_symbols(recon_y, recon_u, recon_v, symbols, qp: int,
                                 qp_c: int, R: int, C: int,
                                 slice_starts: tuple = (), qp_map=None,
                                 kernel: str = "frame"):
     """Inter deblocking given the packed symbol tensor (on the device)."""
-    mv, luma, _cdc, _cac = unpack_symbols_device(symbols)
-    blk_nnz = (luma != 0).sum(dim=3)  # (R, C, 16) raster blocks
-    nnz_grid = blk_nnz.reshape(R, C, 4, 4).transpose(1, 2).reshape(R * 4, C * 4)
-    bs_v, bs_h = db.inter_bs_grids(nnz_grid, mv, R, C)
-    bs_h = _zero_slice_boundaries(bs_h, slice_starts)
+    bs_v, bs_h = pframe_bs_grids(symbols, R, C, slice_starts)
     return deblock_frame(recon_y, recon_u, recon_v, qp, qp_c, bs_v, bs_h,
                          R, C, qp_map=qp_map, kernel=kernel)
 

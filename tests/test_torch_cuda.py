@@ -31,9 +31,10 @@ def cuda_device():
     return torch.device("cuda")
 
 
-# (6, 9) is small; (34, 80) has waves of 34 MBs = 1088 lines, more than the
-# kernel's 1024 threads, so threads loop over lines.
-@pytest.mark.parametrize("R,C", [(6, 9), (34, 80)])
+# One MB, one row, one column, a small picture, a large one, and 4K, which
+# has more MB rows (135) than an H100 has SMs.
+@pytest.mark.parametrize("R,C", [(1, 1), (1, 5), (5, 1), (6, 9), (34, 80),
+                                 (135, 240)])
 @pytest.mark.parametrize("per_mb", [False, True])
 def test_kernel_matches_plain(cuda_device, per_mb, R, C):
     rng = np.random.default_rng(R * C)
@@ -54,7 +55,14 @@ def test_kernel_matches_plain(cuda_device, per_mb, R, C):
     assert dw.deblock_wave.launches == before + 1  # the CPU path launches none
     for a, b in zip(dev, cpu):
         assert torch.equal(a.cpu(), b)
-    assert any(not torch.equal(b, p) for b, p in zip(cpu, planes))
+    if R * C > 1:
+        assert any(not torch.equal(b, p) for b, p in zip(cpu, planes))
+    # Rows shared out among 3 persistent blocks, as on a device that cannot
+    # hold a block per row: the same planes.
+    few = [p.clone().to(cuda_device) for p in planes]
+    dw.launch_deblock_wave(*few, meta.to(cuda_device), R, C, max_blocks=3)
+    for a, b in zip(few, cpu):
+        assert torch.equal(a.cpu(), b)
 
 
 # One MB, a short wave, and the widest wave of a 1080p picture.
@@ -80,6 +88,31 @@ def test_wave_step_kernel_matches_plain(cuda_device, n):
     assert any(not torch.equal(b, p) for b, p in zip(want, patches))
 
 
+# The in-place entry on a wave of one MB, a short wave and the widest wave of
+# a 1080p picture, against gather -> plain step -> scatter on the CPU.
+@pytest.mark.parametrize("R,C,k,n", [(3, 4, 0, 1), (9, 20, 12, 7),
+                                     (68, 120, 134, 60)])
+def test_wave_step_inplace_kernel_matches_plain(cuda_device, R, C, k, n):
+    assert len(dp.wave_rows(k, R, C)) == n
+    rng = np.random.default_rng(n)
+    planes = [torch.as_tensor(rng.integers(0, 256, (R * s, C * s)) // 8 + 100,
+                              dtype=torch.uint8) for s in (16, 8, 8)]
+    bs = [torch.as_tensor(rng.integers(0, 5, (R * 4, C * 4)), dtype=torch.int32)
+          for _ in range(2)]
+    meta = tda.build_meta(30, 29, *bs, R, C)
+    dev = [p.clone().to(cuda_device) for p in planes]
+    cpu = [p.clone() for p in planes]
+    before = dp.deblock_wave_step.launches
+    dp.deblock_wave_step_inplace(*dev, meta.to(cuda_device), R, C, k)
+    torch.cuda.synchronize()
+    assert dp.deblock_wave_step.launches == before + 1
+    dp.deblock_wave_step_inplace(*cpu, meta, R, C, k)
+    assert dp.deblock_wave_step.launches == before + 1  # the CPU path launches none
+    for a, b in zip(dev, cpu):
+        assert torch.equal(a.cpu(), b)
+    assert any(not torch.equal(b, p) for b, p in zip(cpu, planes))
+
+
 @pytest.mark.parametrize("R,C", [(3, 4), (9, 5)])
 def test_wave_route_on_cuda_matches_frame_route(cuda_device, R, C):
     rng = np.random.default_rng(R + C)
@@ -92,8 +125,14 @@ def test_wave_route_on_cuda_matches_frame_route(cuda_device, R, C):
     a = tda.deblock_frame(*planes, 30, 29, *bs, R, C, kernel="wave")
     assert dp.deblock_wave_step.launches == before + dw.n_waves(R, C)
     b = tda.deblock_frame(*planes, 30, 29, *bs, R, C, kernel="frame")
-    for p, q in zip(a, b):
-        assert torch.equal(p, q)
+    # The same waves launch by launch instead of as a CUDA graph.
+    c = [p.clone() for p in planes]
+    meta = tda.build_meta(30, 29, *bs, R, C)
+    for k in range(dw.n_waves(R, C)):
+        dp.deblock_wave_step_inplace(*c, meta, R, C, k)
+    assert dp.deblock_wave_step.launches == before + 2 * dw.n_waves(R, C)
+    for p, q, w in zip(a, b, c):
+        assert torch.equal(p, q) and torch.equal(p, w)
 
 
 def test_argmin_keeps_first_minimum(cuda_device):

@@ -5,7 +5,10 @@ deblock_wave_step) must equal the JAX package's Pallas wave kernel run in
 interpret mode on the same patches and strengths, and the per-wave route of
 deblock_frame must equal the JAX deblock_frame under
 MEDIA_TPU_DEBLOCK_KERNEL=pallas and the port's own whole-frame route. The
-CUDA kernel is held to the plain version in tests/test_torch_cuda.py.
+in-place wave step (patches read from and written to the raster planes, row
+0 and column 0 guarded) must equal the same waves run on planes padded by 4
+at the top and left. The CUDA kernel is held to the plain version in
+tests/test_torch_cuda.py.
 Everything is integer: tolerance 0.
 """
 
@@ -19,6 +22,7 @@ from media_tpu.ops.deblock_pallas import deblock_wave_pallas
 from media_tpu.pipeline import deblock_apply as jda
 from media_tpu.ref.deblock import inter_bs_grids_np, intra_bs_grids_np
 from media_tpu_torch.ops import deblock_pallas as tdp
+from media_tpu_torch.ops import deblock_wave as tdw
 from media_tpu_torch.ops.deblock import META_COLS
 from media_tpu_torch.pipeline import deblock_apply as tda
 
@@ -167,3 +171,68 @@ def test_wave_step_rejects_bad_inputs():
         tdp.deblock_wave_step(yp, cp[:, :, :8], cp.clone(), meta)
     with pytest.raises(ValueError):
         tdp.deblock_wave_step(yp[:0], cp[:0], cp[:0], meta[:0])
+
+
+def _padded_waves(y, u, v, meta, R, C):
+    """The waves of a picture on planes padded by 4 zeros at the top and
+    left, so that every MB has a whole patch: gather, plain step, scatter."""
+    padded = []
+    for p in (y, u, v):
+        q = torch.zeros((p.shape[0] + 4, p.shape[1] + 4), dtype=p.dtype)
+        q[4:, 4:] = p
+        padded.append(q)
+    ar = {16: torch.arange(20), 8: torch.arange(12)}
+    for k in range(tdp.n_waves(R, C)):
+        r, c = tdp.wave_mbs(k, R, C, "cpu")
+        idx = [((r[:, None] * s + ar[s])[:, :, None],
+                (c[:, None] * s + ar[s])[:, None, :]) for s in (16, 8, 8)]
+        out = tdp.deblock_wave_step_plain(
+            *(q[i] for q, i in zip(padded, idx)), meta[r * C + c])
+        for q, i, o in zip(padded, idx, out):
+            q[i] = o
+    return [q[4:, 4:] for q in padded]
+
+
+def _inplace_case(R, C):
+    T = torch.as_tensor
+    src = [T(p.astype(np.uint8)) for p in planes(R, C, seed=R * C, smooth=True)]
+    rng = np.random.default_rng(R + C)
+    bs = [T(rng.integers(0, 5, (R * 4, C * 4)).astype(np.int32))
+          for _ in range(2)]
+    return src, tda.build_meta(30, 29, *bs, R, C)
+
+
+@pytest.mark.parametrize("R,C", [(1, 1), (2, 7), (5, 3), (9, 5)])
+def test_inplace_step_matches_padded_waves(R, C):
+    src, meta = _inplace_case(R, C)
+    want = _padded_waves(*src, meta, R, C)
+    got = [p.clone() for p in src]
+    before = tdp.deblock_wave_step.launches
+    for k in range(tdp.n_waves(R, C)):
+        tdp.deblock_wave_step_inplace(*got, meta, R, C, k)
+    assert tdp.deblock_wave_step.launches == before  # the CPU path launches none
+    routed = [p.clone() for p in src]
+    tdw.run_waves(*routed, meta, R, C)
+    for a, b, c, name in zip(want, got, routed, "yuv"):
+        assert torch.equal(a, b) and torch.equal(a, c), name
+    if R * C > 1:
+        assert any(not torch.equal(a, p) for a, p in zip(got, src))
+
+
+def test_inplace_step_rejects_bad_inputs():
+    R, C = 2, 3
+    (y, u, v), meta = _inplace_case(R, C)
+    step = tdp.deblock_wave_step_inplace
+    for k in (-1, tdp.n_waves(R, C)):
+        with pytest.raises(ValueError):
+            step(y, u, v, meta, R, C, k)
+    with pytest.raises(ValueError):
+        step(y.int(), u, v, meta, R, C, 0)
+    with pytest.raises(ValueError):
+        step(y, u, v, meta.long(), R, C, 0)
+    with pytest.raises(ValueError):
+        step(y.t().contiguous().t(), u, v, meta, R, C, 0)
+    with pytest.raises(ValueError):
+        step(y, u[:, :8], v, meta, R, C, 0)
+    with pytest.raises(ValueError):
+        tdw.run_waves(y, u, v, meta[:1], R, C)
