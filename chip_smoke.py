@@ -20,23 +20,40 @@ Phases, one line each; nothing is caught, any failure exits non-zero:
      against gather -> plain step -> scatter; the routes of deblock_frame
      against each other (whole frame, per wave as a CUDA graph, per wave
      launch by launch); and torch.argmin's first-minimum rule on CUDA;
-  4. encode path: EncoderSession(1920x1080, QP 30, CAVLC, deblock, entropy on
-     the device) on its default device: an IDR via encode_frame, 8 P frames
-     via encode_frames, 8 more via upload_frames + encode_frames_staged; the
-     deblock launch count, the AU digests against the ones recorded from
-     the JAX package (media_tpu_torch/golden_1080p.json, written by
+  4. native: g++ builds the host library (media_tpu_torch/csrc/*.cpp, tables
+     generated from the package); on the symbols of one 1080p I and one P
+     frame of the clip, each C++ writer, parser and the transcoder against
+     the Python coder (bytes or arrays equal), with both times;
+  5. encode path at constant QP: EncoderSession(1920x1080, QP 30, CAVLC,
+     deblock, entropy on the device) on its default device: an IDR via
+     encode_frame, 4 P frames via encode_frames, 4 more via upload_frames +
+     encode_frames_staged; the deblock launch count, the AU digests against
+     the ones recorded from the JAX package
+     (media_tpu_torch/golden_1080p.json, written by
      tools/record_torch_golden.py), P-frame fps, a per-stage split and the
      last recon's PSNR; plus a small clip encoded on CUDA and on the CPU
      (which the tests hold to the JAX package) must give the same bytes;
-  5. decode path: TpuDecoder() (default device, whole-frame deblock route)
-     decodes phase 4's IDR + 8 P access units: picture 0 must equal the
-     encoder's recon after the IDR and picture 8 its recon after
+  6. decode path: TpuDecoder() (default device, whole-frame deblock route)
+     decodes phase 5's IDR + 4 P access units: picture 0 must equal the
+     encoder's recon after the IDR and picture 4 its recon after
      encode_frames, every picture's digest the one recorded from the JAX
      TpuDecoder, with one whole-frame kernel launch per picture; decode fps
-     and the split host parse / upload / device per picture; then
-     TpuDecoder(deblock_kernel="wave") decodes the IDR + 2 P to the same
-     planes through 254 wave-step launches per picture; plus a small stream
-     decoded on CUDA and on the CPU must give the same planes.
+     and the split host parse / upload / device per picture, the P parse
+     also through the Python parser; then TpuDecoder(deblock_kernel="wave")
+     decodes the IDR + 1 P to the same planes through 254 wave-step
+     launches per picture; plus a small stream decoded on CUDA and on the
+     CPU must give the same planes;
+  7. the reference operating point at full width: CBR at 8 Mbit/s with
+     CABAC (cabac_init_idc 1, deblock, PIPELINE_CHUNK 8): IDR + 8 P through
+     encode_frames and 8 P staged; per AU the digest, per P frame the device
+     loop's bits and QP (exact), the rate controller's floats (1e-5), all
+     against the golden, so that a divergence names its first frame; the
+     achieved bitrate, P fps, a per-stage split with the whole-frame kernel
+     in per-MB-QP mode; then IDR + 4 P with adaptive_qp and IDR + 4 P CBR
+     with CAVLC against their goldens; no refusal of a C++ routine; one
+     whole-frame kernel launch per picture;
+  8. CABAC decode: TpuDecoder() on phase 7's IDR + 8 P: planes equal to the
+     encoder's recon and to the JAX TpuDecoder's digests, fps and the split.
 The second-to-last line is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -53,9 +70,9 @@ import time
 import numpy as np
 
 WIDTH, HEIGHT, QP = 1920, 1080, 30
-N_P = 8          # P frames per phase (encode_frames, then staged)
-N_DEC_P = 8      # P pictures decoded through the whole-frame deblock route
-N_WAVE_P = 2     # P pictures decoded through the per-wave deblock route
+N_P = 8          # P frames per phase of the rate-controlled main path
+N_CQ_P = 4       # P frames per phase of the constant-QP path (and decoded)
+N_WAVE_P = 1     # P pictures decoded through the per-wave deblock route
 CHUNK = 8        # session PIPELINE_CHUNK, as the JAX package's bench uses
 SEED = 0
 R_MB, C_MB = -(-HEIGHT // 16), -(-WIDTH // 16)  # 68 x 120 macroblocks
@@ -113,6 +130,93 @@ def clip_i420(w=WIDTH, h=HEIGHT, n=1 + 2 * N_P, seed=SEED):
 
 def _sha(aus) -> str:
     return hashlib.sha256(b"".join(aus)).hexdigest()
+
+
+# The reference operating point (CABAC with a bitrate target) and its two
+# neighbours, each as (EncoderConfig fields beside width/height/qp/gop_size,
+# P frames through encode_frames, P frames staged after them).
+CBR = dict(rc_mode="cbr", bitrate=8_000_000, framerate=30, deblock=True)
+RATE_RUNS = {
+    "cbr_cabac": (dict(cabac=True, cabac_init_idc=1, **CBR), N_P, N_P),
+    "cbr_cabac_aq": (dict(cabac=True, cabac_init_idc=1, adaptive_qp=True,
+                          **CBR), 4, 0),
+    "cbr_cavlc": (dict(CBR), 4, 0),
+}
+
+
+def _host(x):
+    """A device array of either package as numpy."""
+    return np.asarray(x.cpu() if hasattr(x, "cpu") else x)
+
+
+def tap_rate_loop(sess) -> list:
+    """Record what the session's device rate loop returns, chunk by chunk:
+    wraps the frame encoder's two CBR entries and returns the list they
+    append (bits, qps, (qp, buf, cplx)) to, still as device arrays, so that
+    the tap reads nothing back while the session runs. Works on the JAX
+    package's session as on the port's: same names, same tuple."""
+    enc = sess._frame_encoder
+    log: list = []
+
+    def wrap(fn):
+        def tapped(*a, **kw):
+            out = fn(*a, **kw)
+            log.append((out[1], out[2], out[4]))
+            return out
+        return tapped
+
+    enc.encode_pframes_cbr_dev = wrap(enc.encode_pframes_cbr_dev)
+    enc.encode_pframes_cbr = wrap(enc.encode_pframes_cbr)
+    return log
+
+
+def rate_record(sess, aus, log) -> dict:
+    """What a rate-controlled run is held to: a digest and a size per AU,
+    the device loop's CAVLC bits and QP per P frame and its (qp, buf, cplx)
+    carry after each chunk, and the session's final controller state."""
+    rc = [r if isinstance(r, dict) else dict(zip(("qp", "buf", "cplx"), r))
+          for _b, _q, r in log]
+    return {
+        "au_sha256": [hashlib.sha256(a).hexdigest() for a in aus],
+        "au_bytes": [len(a) for a in aus],
+        "bits": [int(b) for bits, _q, _r in log for b in _host(bits)],
+        "qps": [int(q) for _b, qps, _r in log for q in _host(qps)],
+        "rc_chunks": [[float(_host(r[k])) for k in ("qp", "buf", "cplx")]
+                      for r in rc],
+        "rc_final": {**{k: float(v) for k, v in sess.rc_state.items()},
+                     "cabac_scale": float(sess._cabac_scale),
+                     "rc_corr": float(sess._rc_corr)},
+    }
+
+
+def drive_rate_run(sess, bufs, n_p: int, n_staged: int, sync=lambda: None):
+    """IDR through encode_frame, n_p P frames through encode_frames, then
+    n_staged through upload_frames + encode_frames_staged, each phase timed
+    on the host clock between calls of `sync` (the device's synchronise,
+    where there is one). Works on the JAX package's session as on the
+    port's. Returns a dict: "aus" (the IDR and the first run), "staged",
+    "log" (tap_rate_loop's), "recon_idr" and "recon_run" (the reference
+    planes after the IDR and after the first run), "t_idr", "t_run",
+    "t_staged" in seconds."""
+    out = {"log": tap_rate_loop(sess), "staged": [], "t_staged": 0.0}
+
+    def timed(fn):
+        sync()
+        t0 = time.perf_counter()
+        res = fn()
+        sync()
+        return res, time.perf_counter() - t0
+
+    idr, out["t_idr"] = timed(lambda: sess.encode_frame(bufs[0]))
+    out["recon_idr"] = tuple(sess.recon)
+    run, out["t_run"] = timed(lambda: sess.encode_frames(bufs[1 : 1 + n_p]))
+    out["recon_run"] = tuple(sess.recon)
+    out["aus"] = [idr] + run
+    if n_staged:
+        chunks = sess.upload_frames(bufs[1 + n_p : 1 + n_p + n_staged])
+        out["staged"], out["t_staged"] = timed(
+            lambda: sess.encode_frames_staged(chunks))
+    return out
 
 
 def planes_sha(frame) -> str:
@@ -222,6 +326,13 @@ def phase_build():
     lib, secs = kernels.build(verbose=True)
     kernels.load()
     print(f"[build] {os.path.relpath(lib, ROOT)} nvcc {secs:.2f} s")
+    from media_tpu_torch import native
+
+    lib, secs = native.build()
+    handle = native.load()
+    found = [sym for sym in native.SYMBOLS if hasattr(handle, sym)]
+    print(f"[native] {os.path.relpath(lib, ROOT)} g++ {secs:.2f} s, symbols "
+          f"{len(found)}/{len(native.SYMBOLS)}: {' '.join(found)}")
 
 
 def _digest(planes) -> str:
@@ -468,6 +579,148 @@ def phase_kernel_step(smi: str) -> dict:
     return {"max_abs_err": max_err, **rec}
 
 
+def _timed(fn):
+    t0 = time.perf_counter()
+    out = fn()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def phase_native(smi: str, bufs) -> None:
+    """Each C++ coder, parser and the transcoder against the Python coder
+    it mirrors, on the symbols of one 1080p I frame and one P frame of the
+    clip (encoded on the card at QP 36, near the operating point's QPs)."""
+    from media_tpu_torch import native
+    from media_tpu_torch.core.bitstream import BitReader, BitWriter
+    from media_tpu_torch.entropy import cabac_slice
+    from media_tpu_torch.pipeline import slice_coder
+    from media_tpu_torch.pipeline.codec import EncoderConfig, EncoderSession
+    from media_tpu_torch.pipeline.decoder_tpu import parse_pslice_symbols
+    from media_tpu_torch.pipeline.pframe_core import unpack_symbols
+
+    qp = 36
+    sess = EncoderSession(EncoderConfig(width=WIDTH, height=HEIGHT, qp=qp,
+                                        gop_size=300))
+    enc = sess._frame_encoder
+    res = enc.encode_iframe(*sess._planes(bufs[0]), qp, deblock=True)
+    y, u, v = sess._planes(bufs[1])
+    symbols, _ = enc.encode_pframes_batch(
+        y[None], u[None], v[None], res.recon_y, res.recon_u, res.recon_v, qp,
+        deblock=True)
+    p_sym = unpack_symbols(symbols[0])
+    i_keys = ("mode16", "chroma_mode", "dc_levels", "ac_levels", "cdc_levels",
+              "cac_levels")
+    p_keys = ("mv", "luma_levels", "cdc_levels", "cac_levels")
+    i_args = [getattr(res, k) for k in i_keys]
+    p_args = [p_sym[k] for k in p_keys]
+    R, C = R_MB, C_MB
+
+    def report(what, got, t_cpp, want, t_py, size):
+        if isinstance(got, dict):
+            same = all(np.array_equal(np.asarray(got[k]), np.asarray(want[k]))
+                       for k in want if k in got)
+        else:
+            same = got == want
+        if got is None or not same:
+            raise AssertionError(f"native {what}: C++ result differs from "
+                                 "the Python coder's")
+        print(f"[native] {what}: C++ {t_cpp:.2f} ms, Python {t_py:.1f} ms, "
+              f"equal ({size}) | {smi}")
+
+    def cavlc(native_fn, python_fn, args, kw):
+        def run_native():
+            bw = BitWriter()
+            bw.u(5, 0x15)
+            native_fn(bw, *args)
+            return bw.get_bytes()
+
+        def run_python():
+            bw = BitWriter()
+            bw.u(5, 0x15)
+            python_fn(bw, **kw)
+            nbits = bw.bit_position
+            bw.rbsp_trailing_bits()
+            return bw.get_bytes(), nbits
+
+        got, t_cpp = _timed(run_native)
+        (want, nbits), t_py = _timed(run_python)
+        return got, t_cpp, want, t_py, nbits
+
+    got, t_cpp, want, t_py, _ = cavlc(
+        native.write_islice_native, slice_coder.write_islice_mbs, i_args,
+        dict(zip(i_keys, i_args)))
+    report("CAVLC I-slice writer", got, t_cpp, want, t_py, f"{len(got)} B")
+    p_cavlc, t_cpp, want, t_py, p_nbits = cavlc(
+        native.write_pslice_native, slice_coder.write_pslice_mbs, p_args,
+        dict(zip(p_keys, p_args)))
+    report("CAVLC P-slice writer", p_cavlc, t_cpp, want, t_py,
+           f"{len(p_cavlc)} B")
+
+    i_cabac, t_cpp = _timed(
+        lambda: native.cabac_write_islice_native(*i_args, qp))
+    want, t_py = _timed(lambda: cabac_slice.write_islice_cabac(*i_args, qp))
+    report("CABAC I-slice writer", i_cabac, t_cpp, want, t_py,
+           f"{len(want)} B")
+    p_cabac, t_cpp = _timed(
+        lambda: native.cabac_write_pslice_native(*p_args, qp, 1))
+    want, t_py = _timed(
+        lambda: cabac_slice.write_pslice_cabac(*p_args, qp, cabac_init_idc=1))
+    report("CABAC P-slice writer", p_cabac, t_cpp, want, t_py,
+           f"{len(want)} B")
+
+    def python_cavlc_parse():
+        br = BitReader(p_cavlc)
+        br.u(5)
+        return parse_pslice_symbols(br, R, C, slice_qp=qp)
+
+    got, t_cpp = _timed(lambda: native.parse_pslice_native(
+        p_cavlc, len(p_cavlc) * 8, 5, R, C, qp))
+    parsed, t_py = _timed(python_cavlc_parse)
+    report("CAVLC P-slice parser", got, t_cpp, parsed, t_py,
+           f"{R * C} MBs, 5 arrays")
+    if not all(np.array_equal(got[k], p_sym[k]) for k in p_keys):
+        raise AssertionError("native CAVLC parse != the encoder's symbols")
+    got, t_cpp = _timed(lambda: native.cabac_parse_pslice_native(
+        p_cabac, 0, R, C, qp, 1))
+    want, t_py = _timed(lambda: cabac_slice.parse_pslice_cabac(
+        p_cabac, 0, R, C, qp, 1))
+    report("CABAC P-slice parser", got, t_cpp, want, t_py,
+           f"{R * C} MBs, 5 arrays")
+    got, t_cpp = _timed(lambda: native.cabac_parse_islice_native(
+        i_cabac, 0, R, C, qp))
+    want, t_py = _timed(lambda: cabac_slice.parse_islice_cabac(
+        i_cabac, 0, R, C, qp))
+    report("CABAC I-slice parser", got, t_cpp, want, t_py,
+           f"{R * C} MBs, 6 arrays")
+    if not all(np.array_equal(got[k], a) for k, a in zip(i_keys, i_args)):
+        raise AssertionError("native CABAC I parse != the encoder's symbols")
+
+    def python_transcode():
+        sym = python_cavlc_parse()
+        return cabac_slice.write_pslice_cabac(
+            *(sym[k] for k in p_keys), qp, cabac_init_idc=1,
+            qp_map=sym["qp_map"])
+
+    got, t_cpp = _timed(lambda: native.transcode_pslice_native(
+        p_cavlc, p_nbits, 5, R, C, qp, cabac_init_idc=1))
+    want, t_py = _timed(python_transcode)
+    report("CAVLC->CABAC transcoder", got, t_cpp, want, t_py,
+           f"{len(p_cavlc)} B -> {len(want)} B")
+    if got != p_cabac:
+        raise AssertionError("transcode != the CABAC writer on the symbols")
+    if sum(native.fallbacks.values()):
+        raise AssertionError(f"native fallbacks {dict(native.fallbacks)}")
+
+
+def _first_difference(what: str, aus, want_sha, want_bytes) -> None:
+    """Raise, naming the first AU whose digest is not the recorded one."""
+    for i, au in enumerate(aus):
+        if hashlib.sha256(au).hexdigest() != want_sha[i]:
+            raise AssertionError(
+                f"{what}: AU {i} differs from the JAX package's ({len(au)} "
+                f"bytes against {want_bytes[i]}); sizes "
+                f"{[len(a) for a in aus]} against {want_bytes[:len(aus)]}")
+
+
 def _stage_split(sess, frame_buf, smi: str):
     """ms per stage of one 1080p P frame, each stage run and synchronised
     on its own (outside the pipelined session loop)."""
@@ -527,31 +780,27 @@ def _stage_split(sess, frame_buf, smi: str):
           f"{t_host:.3f} | {smi}")
 
 
-def phase_main_path(smi: str, golden: dict):
-    """The encode path. Returns (deblock launches, the IDR + P AUs of the
+def phase_main_path(smi: str, golden: dict, bufs):
+    """The constant-QP encode path. Returns (deblock launches, the IDR + P AUs of the
     first run, the recon after the IDR, the recon after that run)."""
     import torch
 
     from media_tpu_torch.ops.deblock_wave import deblock_wave
     from media_tpu_torch.pipeline.codec import EncoderConfig, EncoderSession
 
-    bufs, clip_sha = clip_i420()
-    if clip_sha != golden["clip_sha256"]:
-        raise AssertionError(f"input clip digest {clip_sha} != recorded "
-                             f"{golden['clip_sha256']} (numpy clip differs)")
     sess = EncoderSession(EncoderConfig(width=WIDTH, height=HEIGHT, qp=QP,
                                         gop_size=300))  # default device
     if sess.device.type != "cuda":
         raise AssertionError(f"EncoderSession defaulted to {sess.device}")
     sess.PIPELINE_CHUNK = CHUNK
-    staged_in = bufs[1 + N_P : 1 + 2 * N_P]
+    staged_in = bufs[1 + N_CQ_P : 1 + 2 * N_CQ_P]
 
     deblock_wave.launches = 0
     t0 = time.perf_counter()
     aus = [sess.encode_frame(bufs[0])]
     t_idr = time.perf_counter() - t0
     recon_idr = [p.clone() for p in sess.recon]
-    aus += sess.encode_frames(bufs[1 : 1 + N_P])
+    aus += sess.encode_frames(bufs[1 : 1 + N_CQ_P])
     recon_run = [p.clone() for p in sess.recon]
     chunks = sess.upload_frames(staged_in)
     torch.cuda.synchronize()
@@ -565,14 +814,10 @@ def phase_main_path(smi: str, golden: dict):
     if launches != n_frames:
         raise AssertionError(f"deblock kernel launched {launches} times for "
                              f"{n_frames} frames")
-    if _sha(aus) != golden["aus_sha256"]:
-        raise AssertionError("IDR + P AUs differ from the JAX package's: "
-                             f"{[len(a) for a in aus]} vs "
-                             f"{golden['au_bytes'][:1 + N_P]}")
-    if _sha(staged) != golden["staged_sha256"]:
-        raise AssertionError("staged P AUs differ from the JAX package's: "
-                             f"{[len(a) for a in staged]} vs "
-                             f"{golden['au_bytes'][1 + N_P:]}")
+    # At constant QP the staged entry emits what encode_frames would: the
+    # golden's AUs 0..8, whichever entry the golden took them through.
+    _first_difference("constant-QP AUs", aus + staged, golden["au_sha256"],
+                      golden["au_bytes"])
     recon = [p.cpu().numpy() for p in sess.recon]
     ph, pw = sess._pad_h, sess._pad_w
     if any(p.shape != s for p, s in zip(
@@ -583,15 +828,25 @@ def phase_main_path(smi: str, golden: dict):
     psnr = _psnr(recon[0][:HEIGHT, :WIDTH], last)
     if not psnr > 28.0:
         raise AssertionError(f"last recon PSNR {psnr:.2f} dB")
-    print(f"[main] {WIDTH}x{HEIGHT} QP{QP} IDR + {2 * N_P} P on cuda: AUs == "
-          "JAX golden "
-          f"(sha256 {_sha(aus)[:16]}, staged {_sha(staged)[:16]}), deblock "
-          f"launches {launches}/{n_frames}, IDR {t_idr * 1e3:.1f} ms")
-    print(f"[main] P-frame fps {N_P / t_staged:.3f} (staged, {N_P} frames, "
-          f"{sum(len(a) for a in staged) * 8 / N_P / 1e3:.1f} kbit/frame), "
-          f"PSNR(last Y) {psnr:.3f} dB | {smi}")
+    print(f"[main] {WIDTH}x{HEIGHT} QP{QP} IDR + {2 * N_CQ_P} P on cuda: AUs "
+          f"== JAX golden (sha256 {_sha(aus)[:16]}, staged "
+          f"{_sha(staged)[:16]}), deblock launches {launches}/{n_frames}, "
+          f"IDR {t_idr * 1e3:.1f} ms (C++ I-slice writer)")
+    print(f"[main] P-frame fps {N_CQ_P / t_staged:.3f} (staged, {N_CQ_P} "
+          f"frames, {sum(len(a) for a in staged) * 8 / N_CQ_P / 1e3:.1f} "
+          f"kbit/frame), PSNR(last Y) {psnr:.3f} dB | {smi}")
+    # The IDR once more through the Python I-slice writer, for its time.
+    slow = EncoderSession(EncoderConfig(width=WIDTH, height=HEIGHT, qp=QP,
+                                        gop_size=300), host_coder="python")
+    t0 = time.perf_counter()
+    idr_py = slow.encode_frame(bufs[0])
+    t_idr_py = time.perf_counter() - t0
+    if idr_py != aus[0]:
+        raise AssertionError("IDR through the Python writer differs")
+    print(f"[main] IDR through the Python I-slice writer {t_idr_py * 1e3:.1f} "
+          f"ms against {t_idr * 1e3:.1f} ms, same bytes | {smi}")
 
-    _stage_split(sess, bufs[2 * N_P], smi)
+    _stage_split(sess, bufs[2 * N_CQ_P + 1], smi)
 
     # The CPU path is the one the tests hold to the JAX package at small
     # sizes; CUDA must give the same bytes.
@@ -633,8 +888,8 @@ def phase_decode_path(smi: str, golden: dict, aus, recon_idr, recon_run):
             if got.shape != want.shape or not np.array_equal(got, want):
                 raise AssertionError(f"{what}: plane {name} differs")
 
-    # ---- whole-frame route (the default), IDR + N_DEC_P P pictures
-    stream = aus[: 1 + N_DEC_P]
+    # ---- whole-frame route (the default), IDR + N_CQ_P P pictures
+    stream = aus[: 1 + N_CQ_P]
     deblock_wave.launches = deblock_wave_step.launches = 0
     dec = TpuDecoder(profile=True)  # default device, default route
     if dec.device.type != "cuda" or dec.deblock_kernel != "frame":
@@ -654,9 +909,7 @@ def phase_decode_path(smi: str, golden: dict, aus, recon_idr, recon_run):
             f"{deblock_wave_step.launches} wave-step launches for "
             f"{len(frames)} pictures")
     equal_planes(frames[0], recon_idr, "decoded IDR vs encoder recon")
-    if N_DEC_P == N_P:
-        equal_planes(frames[-1], recon_run,
-                     "last decoded P vs encoder recon")
+    equal_planes(frames[-1], recon_run, "last decoded P vs encoder recon")
     digests = [planes_sha(f) for f in frames]
     if digests != golden["decoded_sha256"][: len(frames)]:
         bad = [i for i, (a, b) in enumerate(
@@ -667,17 +920,25 @@ def phase_decode_path(smi: str, golden: dict, aus, recon_idr, recon_run):
     if ((ph, pw) != (R_MB * 16, C_MB * 16)
             or frames[0].u.shape != (ph // 2, pw // 2)):
         raise AssertionError(f"decoded shapes {frames[0].y.shape}")
-    print(f"[decode] {WIDTH}x{HEIGHT} IDR + {N_DEC_P} P on cuda, route frame: "
+    print(f"[decode] {WIDTH}x{HEIGHT} IDR + {N_CQ_P} P on cuda, route frame: "
           "pictures == encoder recon == JAX TpuDecoder golden (sha256 "
           f"{digests[-1][:16]}), deblock launches {frame_launches}/"
           f"{len(frames)}")
     p_s = sum(t["parse_ms"] + t["upload_ms"] + t["device_ms"]
               for t in dec.timings if not t["idr"]) / 1e3
     print(f"[decode] fps {len(frames) / t_all:.3f} over all {len(frames)} "
-          f"pictures, P pictures alone {N_DEC_P / p_s:.3f} (each stage "
-          f"synchronised) | {smi}")
+          f"pictures, P pictures alone {N_CQ_P / p_s:.3f} (each stage "
+          f"synchronised; C++ CAVLC P parser, Python CAVLC I parser) | {smi}")
     print(f"[decode] ms per picture, route frame: {_split(dec.timings, True)}"
           f"; {_split(dec.timings, False)} | {smi}")
+    # One P picture through the Python parser, for its time.
+    slow = TpuDecoder(host_parser="python", profile=True)
+    slow.load_state(dec.sps, dec.pps, (frames[0].y, frames[0].u, frames[0].v))
+    (again,) = slow.decode_annexb(stream[1])
+    equal_planes(again, (frames[1].y, frames[1].u, frames[1].v),
+                 "P picture through the Python parser")
+    print(f"[decode] P picture host parse through the Python parser "
+          f"{slow.timings[0]['parse_ms']:.1f} ms, same planes | {smi}")
 
     # ---- per-wave route, IDR + N_WAVE_P P pictures
     deblock_wave.launches = deblock_wave_step.launches = 0
@@ -717,6 +978,247 @@ def phase_decode_path(smi: str, golden: dict, aus, recon_idr, recon_run):
     return frame_launches, step_launches
 
 
+# The golden's rate floats come from XLA on a CPU, the run's from CUDA: log2
+# and exp2 differ in their last places and 6 * log2 amplifies that, so the
+# carry agrees to about 2e-6 relative while every QP, bit count and byte is
+# equal (measured on an H100: 2.04e-06). The floats are a diagnostic that
+# says how near a run came to a rounding boundary; what the run is held to,
+# exactly, is the AUs, the QPs and the bits.
+RATE_FLOAT_TOL = 1e-5
+
+
+def _check_rate_record(name: str, got: dict, want: dict, target: float):
+    """AUs, bits and QPs exact, the controller's floats within
+    RATE_FLOAT_TOL (buf relative to the per-frame target). Names the first
+    frame that differs, with both sides' QPs and bits. Returns the worst
+    relative difference of a float."""
+    both = (f"; qps {got['qps']} against {want['qps']}; bits {got['bits']} "
+            f"against {want['bits']}; rc after each chunk {got['rc_chunks']} "
+            f"against {want['rc_chunks']}")
+    for i, (a, b) in enumerate(zip(got["au_sha256"], want["au_sha256"])):
+        if a != b:
+            raise AssertionError(
+                f"{name}: AU {i} differs from the JAX package's "
+                f"({got['au_bytes'][i]} bytes against {want['au_bytes'][i]})"
+                + both)
+    if (len(got["au_sha256"]) != len(want["au_sha256"])
+            or got["qps"] != want["qps"] or got["bits"] != want["bits"]):
+        raise AssertionError(f"{name}: per-frame QPs or bits differ" + both)
+    worst = 0.0
+    pairs = [(g, w) for g, w in zip(got["rc_chunks"], want["rc_chunks"])]
+    pairs.append(([got["rc_final"][k] for k in ("qp", "buf", "cplx")],
+                  [want["rc_final"][k] for k in ("qp", "buf", "cplx")]))
+    for g, w in pairs:
+        for key, a, b in zip(("qp", "buf", "cplx"), g, w):
+            scale = max(abs(a), abs(b), target if key == "buf" else 0.0)
+            rel = abs(a - b) / scale if scale else 0.0
+            worst = max(worst, rel)
+            if rel > RATE_FLOAT_TOL:
+                raise AssertionError(
+                    f"{name}: rate controller's {key} {a!r} against {b!r} "
+                    f"(relative {rel:.3g})" + both)
+    return worst
+
+
+def _rate_stage_split(sess, frame_buf, qp_f: float, smi: str):
+    """ms per stage of one 1080p P frame of the rate-controlled path with
+    per-MB QP, each stage run and synchronised on its own: the P core and
+    the packer with a QP map, the deblock stage and the whole-frame kernel
+    alone in per-MB-QP mode, and the host's transcode of the slice."""
+    import torch
+
+    from media_tpu_torch.entropy.device_cavlc import (
+        _last_coded, pack_pslice_device)
+    from media_tpu_torch.ops.deblock_wave import launch_deblock_wave
+    from media_tpu_torch.pipeline.deblock_apply import (
+        build_meta, deblock_pframe_from_symbols, pframe_bs_grids)
+    from media_tpu_torch.pipeline.pframe_core import (
+        chroma_qp_device, unpack_symbols_device)
+
+    enc = sess._frame_encoder
+    R, C = enc.n_rows, enc.n_cols
+    dev = sess.device
+    qp = torch.tensor(int(qp_f), dtype=torch.int32, device=dev)
+    thresh = ((torch.arange(R * C, dtype=torch.int32, device=dev) * 97)
+              % 128).to(torch.float32) / 128.0
+    qp_map = qp + (thresh < (qp_f - int(qp_f))).to(torch.int32)
+    frame = [torch.tensor(p, device=dev) for p in sess._planes(frame_buf)]
+    box = {}
+
+    def core():
+        box["out"] = enc._pframe_core(sess.recon, frame, qp_map,
+                                      chroma_qp_device(qp_map), 8)
+
+    t_core = _cuda_ms(core, 3)
+    out = box["out"]
+    mv, luma, cdc, cac = unpack_symbols_device(out["symbols"])
+    cap = sess._device_cap()
+
+    def pack():
+        box["pack"] = pack_pslice_device(mv, luma, cdc, cac, cap,
+                                         qp_map=qp_map.reshape(R, C),
+                                         slice_qp=qp)
+
+    t_pack = _cuda_ms(pack, 3)
+    coded = ((luma != 0).any(dim=3).any(dim=2)
+             | (cdc != 0).any(dim=3).any(dim=2)
+             | (cac != 0).any(dim=4).any(dim=3).any(dim=2))
+    eff = _last_coded(qp_map, coded.reshape(-1), qp).reshape(R, C)
+    recon = (out["recon_y"], out["recon_u"], out["recon_v"])
+    qp_c = chroma_qp_device(qp)
+    t_deblock = _cuda_ms(lambda: deblock_pframe_from_symbols(
+        *recon, out["symbols"], qp, qp_c, R, C, qp_map=eff), 3)
+    meta = build_meta(qp, qp_c, *pframe_bs_grids(out["symbols"], R, C), R, C,
+                      qp_map=eff)
+    t_kernel = _cuda_median_ms(
+        lambda *w: launch_deblock_wave(*w, meta, R, C),
+        lambda: [p.to(torch.uint8, copy=True).contiguous() for p in recon],
+        20)
+    stream, bits = box["pack"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    nbits = int(bits)
+    words = stream[: (nbits + 31) // 32 + 1].cpu().numpy().astype(np.uint32)
+    au = sess._cabac_au_from_cavlc_stream(words, nbits, int(qp_f), 1)
+    t_host = (time.perf_counter() - t0) * 1e3
+    print(f"[stages] {WIDTH}x{HEIGHT} P frame of the CBR + CABAC path with "
+          f"per-MB QP {int(qp_f)}/{int(qp_f) + 1} ms: p_core {t_core:.3f} "
+          f"cavlc_pack {t_pack:.3f} deblock {t_deblock:.3f} (of which the "
+          f"kernel in per-MB-QP mode, median of 20 on this frame's planes, "
+          f"{t_kernel:.4f}) host download + C++ transcode + AU {t_host:.3f} "
+          f"({nbits} CAVLC bits -> {len(au)} B) | {smi}")
+    return t_kernel
+
+
+def phase_rate_path(smi: str, golden: dict, bufs):
+    """The reference operating point and its two neighbours at full width.
+    Returns (whole-frame kernel launches, the CBR + CABAC run's IDR + P AUs,
+    its recon after the IDR, its recon after encode_frames, the kernel's ms
+    in per-MB-QP mode on a frame of the clip)."""
+    import torch
+
+    from media_tpu_torch import native
+    from media_tpu_torch.ops.deblock_wave import deblock_wave
+    from media_tpu_torch.pipeline import encoder as enc_mod
+    from media_tpu_torch.pipeline.codec import EncoderConfig, EncoderSession
+
+    # Count the pictures deblocked with a per-MB QP map.
+    per_mb = {"n": 0}
+    inner = enc_mod.deblock_pframe_from_symbols
+
+    def counting(*a, qp_map=None, **kw):
+        per_mb["n"] += qp_map is not None
+        return inner(*a, qp_map=qp_map, **kw)
+
+    enc_mod.deblock_pframe_from_symbols = counting
+    total_launches = 0
+    keep = {}
+    for name, (fields, n_p, n_staged) in RATE_RUNS.items():
+        want = golden[name]
+        sess = EncoderSession(EncoderConfig(
+            width=WIDTH, height=HEIGHT, qp=QP, gop_size=300, **fields))
+        sess.PIPELINE_CHUNK = CHUNK
+        deblock_wave.launches = 0
+        per_mb["n"] = 0
+        run = drive_rate_run(sess, bufs, n_p, n_staged,
+                             sync=torch.cuda.synchronize)
+        aus, staged, log = run["aus"], run["staged"], run["log"]
+        t_idr, t_run, t_staged = run["t_idr"], run["t_run"], run["t_staged"]
+        launches = deblock_wave.launches
+        total_launches += launches
+        n_frames = len(aus) + len(staged)
+        if launches != n_frames:
+            raise AssertionError(f"{name}: deblock kernel launched {launches} "
+                                 f"times for {n_frames} frames")
+        want_per_mb = (n_frames - 1) if fields.get("adaptive_qp") else 0
+        if per_mb["n"] != want_per_mb:
+            raise AssertionError(f"{name}: {per_mb['n']} pictures deblocked "
+                                 f"with a per-MB QP map, expected "
+                                 f"{want_per_mb}")
+        got = rate_record(sess, aus + staged, log)
+        worst = _check_rate_record(name, got, want, sess._rc_target)
+        if sum(native.fallbacks.values()):
+            raise AssertionError(f"{name}: native fallbacks "
+                                 f"{dict(native.fallbacks)}")
+        p_bytes = sum(len(a) for a in (aus + staged)[1:])
+        n_pf = n_frames - 1
+        fps = sess.cfg.framerate
+        print(f"[ops] {name} {WIDTH}x{HEIGHT} IDR + {n_p} P"
+              f"{f' + {n_staged} staged' if n_staged else ''} on cuda, "
+              f"PIPELINE_CHUNK {CHUNK}: AUs, QPs and bits == JAX golden "
+              f"(qps {got['qps']}, IDR {want['au_bytes'][0]} B), rate "
+              f"floats within {worst:.2g} "
+              f"relative, deblock launches {launches}/{n_frames} "
+              f"({per_mb['n']} with a per-MB QP map), native fallbacks 0")
+        line = (f"[ops] {name} IDR {t_idr * 1e3:.1f} ms, encode_frames P fps "
+                f"{n_p / t_run:.3f}")
+        if n_staged:
+            line += f", staged P fps {n_staged / t_staged:.3f}"
+        print(line + f"; P frames {p_bytes * 8 * fps / n_pf / 1e6:.3f} Mbit/s "
+              f"and with the IDR {sum(got['au_bytes']) * 8 * fps / n_frames / 1e6:.3f} "
+              f"Mbit/s over {n_frames} frames against a target of "
+              f"{sess.cfg.bitrate / 1e6:.3f} Mbit/s (buffer "
+              f"{got['rc_final']['buf'] / 1e6:.3f} Mbit over) | {smi}")
+        keep[name] = (sess, run, got)
+    enc_mod.deblock_pframe_from_symbols = inner
+
+    sess, _run, got = keep["cbr_cabac_aq"]
+    t_kernel = _rate_stage_split(sess, bufs[5], got["rc_final"]["qp"], smi)
+    run = keep["cbr_cabac"][1]
+    return (total_launches, run["aus"], run["recon_idr"], run["recon_run"],
+            t_kernel)
+
+
+def phase_cabac_decode(smi: str, golden: dict, aus, recon_idr, recon_run):
+    """TpuDecoder on the CBR + CABAC stream. Returns the whole-frame
+    kernel's launches."""
+    import torch
+
+    from media_tpu_torch import native
+    from media_tpu_torch.ops.deblock_wave import deblock_wave
+    from media_tpu_torch.pipeline.decoder_tpu import TpuDecoder
+
+    deblock_wave.launches = 0
+    dec = TpuDecoder(profile=True)
+    t0 = time.perf_counter()
+    frames = [f for au in aus for f in dec.decode_annexb(au)]
+    for f in frames:
+        f.y  # wait for the downloads
+    t_all = time.perf_counter() - t0
+    launches = deblock_wave.launches
+    if len(frames) != len(aus) or launches != len(frames):
+        raise AssertionError(f"CABAC decode: {len(frames)} pictures and "
+                             f"{launches} launches for {len(aus)} AUs")
+    for frame, planes, what in ((frames[0], recon_idr, "IDR"),
+                                (frames[-1], recon_run, "last P")):
+        for got, want, name in zip((frame.y, frame.u, frame.v), planes, "yuv"):
+            if not np.array_equal(got, want.cpu().numpy()):
+                raise AssertionError(f"CABAC decode: {what} plane {name} "
+                                     "differs from the encoder's recon")
+    digests = [planes_sha(f) for f in frames]
+    want = golden["cbr_cabac"]["decoded_sha256"]
+    if digests != want:
+        bad = [i for i, (a, b) in enumerate(zip(digests, want)) if a != b]
+        raise AssertionError(f"CABAC decode: pictures {bad} differ from the "
+                             "JAX TpuDecoder's recorded digests")
+    if sum(native.fallbacks.values()):
+        raise AssertionError(f"CABAC decode: native fallbacks "
+                             f"{dict(native.fallbacks)}")
+    n_p = len(frames) - 1
+    p_s = sum(t["parse_ms"] + t["upload_ms"] + t["device_ms"]
+              for t in dec.timings if not t["idr"]) / 1e3
+    print(f"[decode] CABAC {WIDTH}x{HEIGHT} IDR + {n_p} P of the CBR stream "
+          f"on cuda: pictures == encoder recon == JAX TpuDecoder golden "
+          f"(sha256 {digests[-1][:16]}), deblock launches {launches}/"
+          f"{len(frames)}, native fallbacks 0")
+    print(f"[decode] CABAC fps {len(frames) / t_all:.3f} over all "
+          f"{len(frames)} pictures, P pictures alone {n_p / p_s:.3f} (each "
+          f"stage synchronised; C++ CABAC parsers) | {smi}")
+    print(f"[decode] CABAC ms per picture: {_split(dec.timings, True)}; "
+          f"{_split(dec.timings, False)} | {smi}")
+    return launches
+
+
 def main() -> None:
     smi = phase_environment()
     import torch
@@ -731,16 +1233,30 @@ def main() -> None:
     krec_step = phase_kernel_step(smi)
     if "--kernels" in sys.argv[1:]:
         return
-    enc_launches, aus, recon_idr, recon_run = phase_main_path(smi, golden)
+    bufs, clip_sha = clip_i420()
+    if clip_sha != golden["clip_sha256"]:
+        raise AssertionError(f"input clip digest {clip_sha} != recorded "
+                             f"{golden['clip_sha256']} (numpy clip differs)")
+    phase_native(smi, bufs)
+    enc_launches, aus, recon_idr, recon_run = phase_main_path(smi, golden,
+                                                              bufs)
     dec_launches, step_launches = phase_decode_path(smi, golden, aus,
                                                     recon_idr, recon_run)
+    rate_launches, aus, recon_idr, recon_run, t_per_mb = phase_rate_path(
+        smi, golden, bufs)
+    cabac_launches = phase_cabac_decode(smi, golden, aus, recon_idr,
+                                        recon_run)
     print(json.dumps({"kernels": [
         {"name": "deblock_wave", "route": "cuda",
          "source": "media_tpu_torch/csrc/deblock_wave.cu",
          "replaces": "media_tpu/ops/deblock_wave_pallas.py:230",
-         "launches": enc_launches + dec_launches,
+         "launches": (enc_launches + dec_launches + rate_launches
+                      + cabac_launches),
          "launches_encode_path": enc_launches,
-         "launches_decode_path": dec_launches, **krec},
+         "launches_decode_path": dec_launches,
+         "launches_rate_path": rate_launches,
+         "launches_cabac_decode_path": cabac_launches,
+         "per_mb_qp_ms_on_clip_frame": t_per_mb, **krec},
         {"name": "deblock_wave_step", "route": "cuda",
          "source": "media_tpu_torch/csrc/deblock_wave_step.cu",
          "replaces": "media_tpu/ops/deblock_pallas.py:96",

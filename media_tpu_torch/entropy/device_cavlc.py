@@ -454,9 +454,22 @@ def _se_split(x):
     return _ue_split(torch.where(x > 0, 2 * x - 1, -2 * x))
 
 
-def _encode_headers(meta, R, C):
-    """Stage 2b: per-MB header codeword slots -> packed bit buffers (uniform
-    QP: mb_qp_delta is se(0), one '1' bit, on every cbp != 0 MB)."""
+def _last_coded(vals, coded, seed):
+    """Running "last coded value": out[i] = vals[j] for the last j <= i with
+    coded[j], else `seed` (the scan the JAX package writes as an associative
+    "keep the right operand if it is set"). Carries the index of the last
+    coded element with a cummax and gathers."""
+    idx = torch.arange(vals.shape[0], device=vals.device)
+    last = torch.cummax(torch.where(coded, idx, -1), dim=0).values
+    return torch.where(last >= 0, vals[last.clamp(min=0)], seed)
+
+
+def _encode_headers(meta, R, C, qp_map=None, slice_qp=None):
+    """Stage 2b: per-MB header codeword slots -> packed bit buffers.
+
+    qp_map: optional (R, C) per-MB QP tensor: mb_qp_delta is then coded on
+    every cbp != 0 MB against the running QP, which starts at slice_qp (int
+    or 0-d tensor). Without it the delta is se(0), one '1' bit."""
     n = R * C
     active = (~meta["is_skip"].reshape(-1)).to(torch.int64)
     skip_run = meta["skip_run"].reshape(-1)
@@ -472,7 +485,19 @@ def _encode_headers(meta, R, C):
         *_se_split(qmv[:, 1] - pred[:, 1]),
         *_ue_split(cbp_code),
     )]
-    slots.append((torch.ones_like(skip_run), (cbp > 0).to(torch.int64) * active))
+    delta_active = (cbp > 0).to(torch.int64) * active
+    if qp_map is None:
+        slots.append((torch.ones_like(skip_run), delta_active))
+    else:
+        qp_flat = qp_map.reshape(-1).to(torch.int64)
+        seed = torch.as_tensor(slice_qp, device=qp_flat.device).to(torch.int64)
+        incl = _last_coded(qp_flat, delta_active > 0, seed)
+        prev = torch.cat([seed.reshape(1), incl[:-1]])
+        delta = qp_flat - prev
+        # mod-52 wrap into the normative [-26, 25] window
+        delta = torch.where(delta > 25, delta - 52,
+                            torch.where(delta < -26, delta + 52, delta))
+        slots += [(v, l * delta_active) for v, l in _se_split(delta)]
     vals = torch.stack([v for v, _ in slots], dim=1)
     lens = torch.stack([l for _, l in slots], dim=1)
     return _pack_codes(vals, lens, HDR_WORDS)
@@ -483,10 +508,12 @@ def _pad_words(w, target: int):
 
 
 def pack_pslice_device(mv, luma_levels, cdc_levels, cac_levels,
-                       out_words: int, ratio: float = 0.25):
-    """Full on-device P-slice packer (uniform QP).
+                       out_words: int, qp_map=None, slice_qp=None,
+                       ratio: float = 0.25):
+    """Full on-device P-slice packer.
 
-    Inputs are the (R, C, ...) int32 symbol tensors. Returns (stream
+    Inputs are the (R, C, ...) int32 symbol tensors. qp_map/slice_qp select
+    per-MB QP coding (see _encode_headers). Returns (stream
     (out_words,) int64 words holding uint32 values, slice_data bits
     MSB-first from bit 0, and total_bits () int64). total_bits >
     out_words*32 signals overflow: the caller falls back to host packing.
@@ -531,7 +558,7 @@ def pack_pslice_device(mv, luma_levels, cdc_levels, cac_levels,
     ab = torch.where(cac_inc, ab, 0)
 
     # --- headers + trailing skip-run chunk
-    hw, hb = _encode_headers(meta, R, C)
+    hw, hb = _encode_headers(meta, R, C, qp_map=qp_map, slice_qp=slice_qp)
     trailing = meta["trailing_run"].reshape(1)
     (tz_v, tz_l), (tc_v, tc_l) = _ue_split(trailing)
     t_active = (trailing > 0).to(torch.int64)

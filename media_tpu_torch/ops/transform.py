@@ -2,9 +2,11 @@
 
 PyTorch twin of media_tpu/ops/transform.py. Everything is int32 and
 bit-exact against Rec. ITU-T H.264 sections 8.5.10-8.5.12 with flat scaling
-lists. Blocks have shape (..., 4, 4) (or (..., 2, 2) for chroma DC). QP is a
-Python int (the port encodes at constant QP); the two dequantisers that the
-decoder runs on adaptive-QP streams also take a per-MB (N,) QP tensor.
+lists. Blocks have shape (..., 4, 4) (or (..., 2, 2) for chroma DC). The
+quantisers and dequantisers of the P path take the QP as a Python int, as a
+0-d tensor (the rate loop computes a frame's QP on the device and never
+reads it back) or as a per-MB (N,) tensor (adaptive QP); the two luma-DC
+functions of the IDR take a Python int.
 """
 
 from __future__ import annotations
@@ -90,6 +92,7 @@ def _tables(device: torch.device):
         "zz": torch.as_tensor(ZIGZAG_FLAT, dtype=torch.long, device=device),
         "izz": torch.as_tensor(INV_ZIGZAG_FLAT, dtype=torch.long,
                                device=device),
+        "cqp": torch.as_tensor(CHROMA_QP_TABLE, device=device),
     }
 
 
@@ -159,12 +162,35 @@ def hadamard_2x2(x):
 # --- Quantization ------------------------------------------------------------
 
 
-def quant_4x4(w, qp: int, *, intra: bool):
-    """Forward quantization (JM method), levels clamped to +-MAX_LEVEL."""
+def _qp_terms(qp, x):
+    """Split a QP for the table lookups: (qp % 6 as a table index, qp // 6
+    aligned to broadcast against x of shape (N, ..., 4, 4) or (N, 2, 2), a
+    function that aligns a table lookup the same way). qp: a Python int, a
+    0-d integer tensor (a QP computed on the device: no host read), or a
+    (N,) integer tensor of per-MB QPs with N == x.shape[0]."""
+    if not torch.is_tensor(qp):
+        return qp % 6, qp // 6, lambda t: t
+    q = qp.to(torch.int32)
+    rem, per = (q % 6).long(), q // 6
+    if q.dim() == 0:
+        return rem, per, lambda t: t
+    n, mid = q.shape[0], (1,) * (x.dim() - 3)
+    return (rem, per.reshape(n, *mid, 1, 1),
+            lambda t: t.reshape(n, *mid, *t.shape[1:]))
+
+
+def _pow2(e):
+    return 1 << e if not torch.is_tensor(e) else torch.ones_like(e) << e
+
+
+def quant_4x4(w, qp, *, intra: bool):
+    """Forward quantization (JM method), levels clamped to +-MAX_LEVEL.
+    qp: int, 0-d tensor or per-MB (N,) tensor (see _qp_terms)."""
     w = w.to(torch.int32)
-    qbits = 15 + qp // 6
-    mf = _tables(w.device)["mf"][qp % 6]
-    f = (1 << qbits) // (3 if intra else 6)
+    rem, per, align = _qp_terms(qp, w)
+    qbits = 15 + per
+    mf = align(_tables(w.device)["mf"][rem])
+    f = _pow2(qbits) // (3 if intra else 6)
     level = (w.abs() * mf + f) >> qbits
     return torch.sign(w) * torch.clamp(level, max=MAX_LEVEL)
 
@@ -181,27 +207,25 @@ def quant_dc_4x4(w_dc, qp: int, *, intra: bool = True):
     return torch.sign(w) * level
 
 
-def quant_dc_2x2(w_dc, qp: int, *, intra: bool):
-    """Quantize chroma DC after the 2x2 transform: (|W|*MF0 + 2f) >> (qbits+1)."""
+def quant_dc_2x2(w_dc, qp, *, intra: bool):
+    """Quantize chroma DC after the 2x2 transform: (|W|*MF0 + 2f) >> (qbits+1).
+    qp: int, 0-d tensor or per-MB (N,) tensor for w_dc of shape (N, 2, 2)."""
     w = w_dc.to(torch.int32)
-    qbits = 15 + qp // 6
-    mf0 = int(MF_4x4[qp % 6, 0, 0])
-    f = (1 << qbits) // (3 if intra else 6)
+    rem, per, align = _qp_terms(qp, w)
+    qbits = 15 + per
+    mf0 = align(_tables(w.device)["mf"][rem])[..., 0:1, 0:1]
+    f = _pow2(qbits) // (3 if intra else 6)
     level = (w.abs() * mf0 + 2 * f) >> (qbits + 1)
     return torch.sign(w) * torch.clamp(level, max=MAX_LEVEL)
 
 
 def dequant_4x4(z, qp):
-    """Dequantize 4x4 levels: d = z * V(qp%6, pos) << (qp/6). qp: int, or a
-    (N,) integer tensor of per-MB QPs for z of shape (N, ..., 4, 4)."""
+    """Dequantize 4x4 levels: d = z * V(qp%6, pos) << (qp/6). qp: int, 0-d
+    tensor, or a (N,) integer tensor of per-MB QPs for z of shape
+    (N, ..., 4, 4)."""
     z = z.to(torch.int32)
-    v = _tables(z.device)["v"]
-    if not torch.is_tensor(qp):
-        return (z * v[qp % 6]) << (qp // 6)
-    qp = qp.to(torch.long)
-    n, mid = z.shape[0], (1,) * (z.dim() - 3)
-    shift = (qp // 6).to(torch.int32).reshape(n, *mid, 1, 1)
-    return (z * v[qp % 6].reshape(n, *mid, 4, 4)) << shift
+    rem, per, align = _qp_terms(qp, z)
+    return (z * align(_tables(z.device)["v"][rem])) << per
 
 
 def dequant_dc_4x4(f_dc, qp: int):
@@ -216,15 +240,12 @@ def dequant_dc_4x4(f_dc, qp: int):
 
 def dequant_dc_2x2(f_dc, qp):
     """Dequantize chroma DC after the decoder-side 2x2 transform (spec
-    8.5.11): ((f * 16*V0) << (qp/6)) >> 5. qp: int, or a (N,) integer tensor
-    of per-MB QPs for f_dc of shape (N, 2, 2)."""
+    8.5.11): ((f * 16*V0) << (qp/6)) >> 5. qp: int, 0-d tensor, or a (N,)
+    integer tensor of per-MB QPs for f_dc of shape (N, 2, 2)."""
     f = f_dc.to(torch.int32)
-    if not torch.is_tensor(qp):
-        v0 = int(V_4x4[qp % 6, 0, 0])
-        return ((f * 16 * v0) << (qp // 6)) >> 5
-    qp = qp.to(torch.long)
-    v0 = _tables(f.device)["v"][qp % 6, 0, 0][:, None, None]
-    return ((f * 16 * v0) << (qp // 6).to(torch.int32)[:, None, None]) >> 5
+    rem, per, align = _qp_terms(qp, f)
+    v0 = align(_tables(f.device)["v"][rem])[..., 0:1, 0:1]
+    return ((f * 16 * v0) << per) >> 5
 
 
 # --- Zig-zag -----------------------------------------------------------------

@@ -40,9 +40,18 @@ def _tc0_sel(bs, rows):
                                    torch.where(bs == 3, rows[..., 2:3], 0)))
 
 
-def build_meta(qp: int, qp_c: int, bs_v, bs_h, R: int, C: int, qp_map=None):
+def _qp_index(qp):
+    """A QP (Python int, or 0-d tensor computed on the device) clipped to a
+    row index of the threshold tables, without a host read."""
+    if torch.is_tensor(qp):
+        return qp.long().clamp(0, 51)
+    return min(max(qp, 0), 51)
+
+
+def build_meta(qp, qp_c, bs_v, bs_h, R: int, C: int, qp_map=None):
     """Per-MB deblocking meta (R*C, META_COLS) int32, raster MB order.
 
+    qp/qp_c: the picture's luma and chroma QP, Python ints or 0-d tensors.
     bs_v/bs_h: (4R, 4C) strengths (vertical edge left of / horizontal edge
     above each 4x4 luma block). Frame-border edges are forced to bS 0.
     qp_map: optional (R, C) per-MB luma QP; boundary edges then use
@@ -62,8 +71,8 @@ def build_meta(qp: int, qp_c: int, bs_v, bs_h, R: int, C: int, qp_map=None):
     bscv_mb = bsv_mb[:, (0, 2), :]  # chroma edges sit on luma edges 0 and 2
     bsch_mb = bsh_mb[:, (0, 2), :]
     if qp_map is None:
-        row = tbl[min(max(qp, 0), 51)]
-        row_c = tbl[min(max(qp_c, 0), 51)]
+        row = tbl[_qp_index(qp)]
+        row_c = tbl[_qp_index(qp_c)]
         lut = row[None, None, :].expand(n, 8, 5)
         lut_c = row_c[None, None, :].expand(n, 4, 5)
     else:
@@ -95,7 +104,7 @@ def build_meta(qp: int, qp_c: int, bs_v, bs_h, R: int, C: int, qp_map=None):
     return meta
 
 
-def deblock_frame(y, u, v, qp: int, qp_c: int, bs_v, bs_h, R: int, C: int,
+def deblock_frame(y, u, v, qp, qp_c, bs_v, bs_h, R: int, C: int,
                   qp_map=None, kernel: str = "frame"):
     """Deblock one frame; returns filtered uint8 (y, u, v).
 
@@ -144,11 +153,13 @@ def pframe_bs_grids(symbols, R: int, C: int, slice_starts: tuple = ()):
     return bs_v, _zero_slice_boundaries(bs_h, slice_starts)
 
 
-def deblock_pframe_from_symbols(recon_y, recon_u, recon_v, symbols, qp: int,
-                                qp_c: int, R: int, C: int,
+def deblock_pframe_from_symbols(recon_y, recon_u, recon_v, symbols, qp,
+                                qp_c, R: int, C: int,
                                 slice_starts: tuple = (), qp_map=None,
                                 kernel: str = "frame"):
-    """Inter deblocking given the packed symbol tensor (on the device)."""
+    """Inter deblocking given the packed symbol tensor (on the device).
+    qp/qp_c: Python ints or 0-d tensors (the rate loop's QP of this frame);
+    qp_map: optional (R, C) per-MB QP as the decoder sees it."""
     bs_v, bs_h = pframe_bs_grids(symbols, R, C, slice_starts)
     return deblock_frame(recon_y, recon_u, recon_v, qp, qp_c, bs_v, bs_h,
                          R, C, qp_map=qp_map, kernel=kernel)

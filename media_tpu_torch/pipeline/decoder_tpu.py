@@ -9,12 +9,17 @@ window gather per plane per MB, a 16-way sub-pel select), wavefront intra
 reconstruction and the in-loop deblocking filter (pipeline/deblock_apply.py,
 either of its two routes). Reference planes stay on the device between AUs.
 
-Scope: CAVLC streams of single- or multi-slice pictures (row-aligned
-slices, assembled per picture), P_Skip / P_L0_16x16 and I_16x16
+The entropy parse runs in the C++ parsers of native/ (CABAC P and I slices;
+CAVLC P slices that cover the rest of the picture) and in the Python
+parsers where those refuse a slice, for multi-slice CAVLC pictures, for
+CAVLC I slices, and throughout with host_parser="python".
+
+Scope: CAVLC and CABAC streams of single- or multi-slice pictures
+(row-aligned slices, assembled per picture), P_Skip / P_L0_16x16 and I_16x16
 macroblocks, per-MB QP in P slices, disable_deblocking_filter_idc 0/1/2,
 |MV| within the supported window. Anything else raises UnsupportedStream;
-for what the JAX package decodes and this port does not yet (CABAC, I_4x4)
-the message names the ROADMAP item that ports it.
+for what the JAX package decodes and this port does not yet (I_4x4) the
+message names the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -25,11 +30,12 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from .. import native
 from ..core import nal as nal_mod
 from ..core.bitstream import BitReader
 from ..core.syntax import PPS, SPS, SliceHeader
 from ..device import resolve_device
-from ..entropy import cavlc
+from ..entropy import cabac_slice, cavlc
 from ..entropy.cavlc_tables import CBP_TABLE
 from ..ops import interp as interp_ops
 from ..ops import intra as intra_ops
@@ -413,13 +419,16 @@ class TpuDecoder:
     device: "cuda" unless the caller asks for the CPU; a CUDA device that is
     not there raises. deblock_kernel: the route of the in-loop filter,
     "frame" (the whole-frame kernel) or "wave" (one wave-step kernel launch
-    per wave; uniform-QP pictures only). profile: synchronize around the
+    per wave; uniform-QP pictures only). host_parser: "native" (the C++
+    slice parsers of native/, the default) or "python" (the Python parsers
+    that are their oracle; for tests). profile: synchronize around the
     stages of each picture and append {"idr", "parse_ms", "upload_ms",
     "device_ms"} to `timings` (it serializes the pipeline; for measurement
     only)."""
 
     device: object = "cuda"
     deblock_kernel: str = "frame"
+    host_parser: str = "native"
     sps: SPS | None = None
     pps: PPS | None = None
     ref_planes: tuple | None = None  # (y, u, v) uint8 on the device
@@ -432,6 +441,9 @@ class TpuDecoder:
         if self.deblock_kernel not in ("frame", "wave"):
             raise ValueError(f"deblock_kernel {self.deblock_kernel!r} "
                              "(expected 'frame' or 'wave')")
+        if self.host_parser not in ("native", "python"):
+            raise ValueError(f"host_parser {self.host_parser!r} (expected "
+                             "'native' or 'python')")
         self._asm = None
 
     def load_state(self, sps, pps, ref_planes) -> None:
@@ -479,7 +491,7 @@ class TpuDecoder:
         if hdr.first_mb_in_slice == 0:
             self._asm = None  # new picture
         try:
-            return self._decode_slice_body(br, hdr, nal_ref_idc)
+            return self._decode_slice_body(rbsp, br, hdr, nal_ref_idc)
         except UnsupportedStream:
             self._asm = None
             raise
@@ -489,7 +501,55 @@ class TpuDecoder:
             self._asm = None
             raise UnsupportedStream(str(e)) from e
 
-    def _decode_slice_body(self, br, hdr, nal_ref_idc: int):
+    def _parse_pslice(self, rbsp: bytes, br, hdr, n_avail: int, C: int,
+                      qp: int):
+        """The symbol dict of one P slice that starts n_avail MB rows above
+        the picture's end."""
+        use_native = self.host_parser == "native"
+        if self.pps.entropy_coding_mode:
+            pos = br.bit_position
+            pos += (8 - pos % 8) % 8  # cabac_alignment_one_bit
+            sym = native.cabac_parse_pslice_native(
+                rbsp, pos, n_avail, C, qp,
+                hdr.cabac_init_idc) if use_native else None
+            if sym is None or sym["covered"] != n_avail * C:
+                sym = cabac_slice.parse_pslice_cabac(
+                    rbsp, pos, n_avail, C, qp, hdr.cabac_init_idc)
+            if sym.get("qp_map") is None:
+                sym["qp_map"] = np.full((n_avail, C), qp, np.int32)
+            return sym
+        if use_native:
+            sym = native.parse_pslice_native(
+                rbsp, len(rbsp) * 8, br.bit_position, n_avail, C, qp)
+            # C++ fast path: the slice covered the full remaining band
+            # (single-slice pictures and last slices).
+            if sym is not None and sym["covered"] == n_avail * C:
+                return sym
+        return parse_pslice_symbols(br, n_avail, C, slice_qp=qp, partial=True)
+
+    def _parse_islice(self, rbsp: bytes, br, n_avail: int, C: int, qp: int):
+        """The symbol dict of one I slice; an I_4x4 macroblock raises."""
+        if self.pps.entropy_coding_mode:
+            pos = br.bit_position
+            pos += (8 - pos % 8) % 8  # cabac_alignment_one_bit
+            sym = native.cabac_parse_islice_native(
+                rbsp, pos, n_avail, C, qp) if (
+                    self.host_parser == "native") else None
+            if sym is None:
+                sym = cabac_slice.parse_islice_cabac(rbsp, pos, n_avail, C,
+                                                     qp)
+            if sym.get("is_i4") is not None and np.asarray(sym["is_i4"]).any():
+                raise UnsupportedStream(
+                    "I_4x4 macroblock: media_tpu_torch does not port I_4x4 "
+                    "reconstruction yet (ROADMAP queue 1, item 10)")
+            return sym
+        pr = parse_islice_mbs(br, n_avail, C, qp, partial=True)
+        return {"mode16": pr.mode16, "chroma_mode": pr.chroma_mode,
+                "dc_levels": pr.dc_levels, "ac_levels": pr.ac_levels,
+                "cdc_levels": pr.cdc_levels, "cac_levels": pr.cac_levels,
+                "covered": pr.covered}
+
+    def _decode_slice_body(self, rbsp: bytes, br, hdr, nal_ref_idc: int):
         """Parse one slice into slice-local symbol arrays (neighbor rules
         reset at slice boundaries come for free), accumulate into the
         picture assembly, and reconstruct on the device once the picture is
@@ -511,16 +571,11 @@ class TpuDecoder:
         if asm["is_p"] != hdr.is_p or asm["covered"] != r0 * C:
             raise UnsupportedStream("mixed/out-of-order slices in a picture")
         asm["slice_starts"].append(r0)
-        if pps.entropy_coding_mode:
-            raise UnsupportedStream(
-                "CABAC stream: media_tpu_torch does not port the CABAC "
-                "parsers yet (ROADMAP queue 1, items 9 and 15)")
 
         if hdr.is_p:
             if self.ref_planes is None:
                 raise ValueError("P slice without reference frame")
-            sym = parse_pslice_symbols(br, n_avail, C, slice_qp=qp,
-                                       partial=True)
+            sym = self._parse_pslice(rbsp, br, hdr, n_avail, C, qp)
             keys = ("mv", "luma_levels", "cdc_levels", "cac_levels")
         else:
             if r0 > 0 and qp != asm["qp0"]:
@@ -529,11 +584,7 @@ class TpuDecoder:
                 # would be silently mis-dequantized.
                 raise UnsupportedStream(
                     "per-slice QP change in an I picture")
-            pr = parse_islice_mbs(br, n_avail, C, qp, partial=True)
-            sym = {"mode16": pr.mode16, "chroma_mode": pr.chroma_mode,
-                   "dc_levels": pr.dc_levels, "ac_levels": pr.ac_levels,
-                   "cdc_levels": pr.cdc_levels, "cac_levels": pr.cac_levels,
-                   "covered": pr.covered}
+            sym = self._parse_islice(rbsp, br, n_avail, C, qp)
             keys = ("mode16", "chroma_mode", "dc_levels", "ac_levels",
                     "cdc_levels", "cac_levels")
         covered = int(sym["covered"])

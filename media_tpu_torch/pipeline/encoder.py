@@ -22,7 +22,7 @@ from ..ops.pad import edge_pad
 from .deblock_apply import deblock_iframe, deblock_pframe_from_symbols
 from .pframe_core import (
     INTERP_HALO, _blocks8_mb, _blocks_mb, _mb_blocks, _mb_blocks8,
-    local_pframe_core, unpack_symbols_device)
+    chroma_qp_device, local_pframe_core, unpack_symbols_device)
 
 # z-scan order of 4x4 luma blocks within an MB -> raster index (by*4+bx)
 ZSCAN_TO_RASTER = np.array(
@@ -200,19 +200,24 @@ class FrameEncoder:
 
     # ------------------------------------------------------------------ inter
 
-    def _pframe_step(self, ref, frame, qp: int, qp_c: int, rs: int,
-                     deblock: bool):
-        """One P frame against the uint8 reference planes `ref`. Returns
-        (symbols, recon planes)."""
+    def _pframe_core(self, ref, frame, qp, qp_c, rs: int):
+        """local_pframe_core of one P frame against the uint8 reference
+        planes `ref`, before deblocking."""
         halo_y = rs + INTERP_HALO
         halo_c = rs // 2 + 2
         ry, ru, rv = (p.to(torch.int32) for p in ref)
         y, u, v = (p.to(torch.int32) for p in frame)
-        out = local_pframe_core(
+        return local_pframe_core(
             y, u, v, edge_pad(ry, halo_y, halo_y, 0, 0),
             edge_pad(ru, halo_c, halo_c, 0, 0),
             edge_pad(rv, halo_c, halo_c, 0, 0),
             qp, qp_c, rs, self.n_rows, self.n_cols)
+
+    def _pframe_step(self, ref, frame, qp: int, qp_c: int, rs: int,
+                     deblock: bool):
+        """One P frame against the uint8 reference planes `ref`. Returns
+        (symbols, recon planes)."""
+        out = self._pframe_core(ref, frame, qp, qp_c, rs)
         recon = (out["recon_y"], out["recon_u"], out["recon_v"])
         if deblock:
             recon = deblock_pframe_from_symbols(
@@ -284,3 +289,144 @@ class FrameEncoder:
         return self._encode_pbatch_packed_device(
             ys_d, us_d, vs_d, *ref, qp, int(T.chroma_qp(qp)), search_range,
             deblock, cap or self.cap_words)
+
+    # ---------------------------------------------------- inter + CBR control
+
+    def _rc_scalar(self, x):
+        """A rate-controller value (Python float or 0-d tensor) as a 0-d
+        float32 tensor on the device."""
+        if torch.is_tensor(x):
+            return x.to(self.device, torch.float32)
+        return torch.tensor(float(x), dtype=torch.float32, device=self.device)
+
+    def encode_pframes_cbr(self, ys, us, vs, ref_y, ref_u, ref_v,
+                           rc_state: dict, target_bits_per_frame: int,
+                           qp_min: int = 12, qp_max: int = 44,
+                           search_range: int = 8, deblock: bool = False,
+                           adaptive_qp: bool = False,
+                           cap: int | None = None):
+        """Encode K P frames with on-device CBR rate control.
+
+        The device packer reports each frame's exact bit count, so the
+        virtual-buffer feedback loop (bits -> complexity model -> next QP)
+        runs on the device with no host read between frames. rc_state
+        carries {"qp", "buf", "cplx"} floats across calls. adaptive_qp:
+        per-MB QP modulation (mb_qp_delta) realises the fractional part of
+        the controller's ideal QP by a deterministic dither.
+
+        Returns (streams numpy uint32 (the used prefix), bits, qps, recon
+        device planes, new rc_state)."""
+        cap_used = cap or self.cap_words
+        streams, bits, qps, recon, new_state = self._encode_pbatch_cbr_device(
+            *self._to_device(ys, us, vs, ref_y, ref_u, ref_v),
+            *(self._rc_scalar(rc_state[k]) for k in ("qp", "buf", "cplx")),
+            float(target_bits_per_frame), qp_min, qp_max, search_range,
+            deblock, adaptive_qp, cap_used)
+        out_state = dict(zip(("qp", "buf", "cplx"),
+                             (float(x) for x in new_state)))
+        bits_np = bits.cpu().numpy()
+        nw = stream_prefix_words(int(bits_np.max()), cap_used)
+        return (streams[:, :nw].cpu().numpy().astype(np.uint32), bits_np,
+                qps.cpu().numpy(), recon, out_state)
+
+    def encode_pframes_cbr_dev(self, ys_d, us_d, vs_d, ref, rc_state: dict,
+                               target_bits_per_frame: int,
+                               bits_scale: float = 1.0, qp_min: int = 12,
+                               qp_max: int = 44, search_range: int = 8,
+                               deblock: bool = False,
+                               adaptive_qp: bool = False,
+                               cap: int | None = None):
+        """Device-resident CBR batch with a scale on the rate feedback: the
+        loop integrates device-CAVLC bits x `bits_scale` (the session's
+        running CABAC/CAVLC ratio when the emitted entropy is CABAC through
+        the host transcode). rc_state values are floats or 0-d tensors.
+        Returns device tensors (streams, bits, qps, recon, (qp, buf, cplx));
+        the downloads are the caller's."""
+        return self._encode_pbatch_cbr_device(
+            ys_d, us_d, vs_d, *ref,
+            *(self._rc_scalar(rc_state[k]) for k in ("qp", "buf", "cplx")),
+            float(target_bits_per_frame), qp_min, qp_max, search_range,
+            deblock, adaptive_qp, cap or self.cap_words,
+            bits_scale=float(bits_scale))
+
+    def _encode_pbatch_cbr_device(self, ys, us, vs, ref_y, ref_u, ref_v,
+                                  qp0, buf0, cplx0, target: float,
+                                  qp_min: int, qp_max: int, search_range: int,
+                                  deblock: bool = False,
+                                  adaptive_qp: bool = False, cap=None,
+                                  bits_scale=None):
+        """The CBR loop over a chunk, the carry (recon, qp_f, buf, cplx)
+        held as 0-d float32 tensors on the device: no value of it is read
+        by the host between frames. Every rate operation is float32 in the
+        JAX package's order (Python floats enter as float32 scalars), and
+        no input tensor is written to, so a retry with the same inputs
+        gives the same QPs and streams."""
+        # Imported here: device_cavlc takes ZSCAN_TO_RASTER from this module.
+        from ..entropy.device_cavlc import _last_coded, pack_pslice_device
+
+        cap = cap or self.cap_words
+        R, C = self.n_rows, self.n_cols
+        f32, i32 = torch.float32, torch.int32
+        if adaptive_qp:
+            # Deterministic stride-97 spread of the dither thresholds.
+            thresh = ((torch.arange(R * C, dtype=i32, device=ys.device) * 97)
+                      % 128).to(f32) / 128.0
+        recon = (ref_y, ref_u, ref_v)
+        qp_f, buf, cplx = qp0, buf0, cplx0
+        streams, bits_out, qps = [], [], []
+        for j in range(ys.shape[0]):
+            # Virtual-buffer drain: aim below target when the buffer is full.
+            adj_target = torch.clamp(target - 0.35 * buf, min=0.25 * target)
+            want_qstep = torch.clamp(cplx / adj_target, 0.625, 1024.0)
+            qp_f = torch.clamp(6.0 * torch.log2(want_qstep / 0.625),
+                               float(qp_min), float(qp_max))
+            if adaptive_qp:
+                # Fractional QP by per-MB dither: floor(qp)+1 on a `frac`
+                # share of the MBs.
+                qp = torch.floor(qp_f).to(i32)
+                frac = qp_f - qp.to(f32)
+                qp_map = torch.clamp(qp + (thresh < frac).to(i32), qp_min,
+                                     qp_max)
+                qp_enc, qp_c_enc = qp_map, chroma_qp_device(qp_map)
+                qp_c = chroma_qp_device(qp)
+            else:
+                qp = torch.clamp(torch.round(qp_f), qp_min, qp_max).to(i32)
+                qp_c = chroma_qp_device(qp)
+                qp_enc, qp_c_enc, qp_map = qp, qp_c, None
+
+            out = self._pframe_core(recon, (ys[j], us[j], vs[j]), qp_enc,
+                                    qp_c_enc, search_range)
+            mv, luma, cdc, cac = unpack_symbols_device(out["symbols"])
+            stream, bits = pack_pslice_device(
+                mv, luma, cdc, cac, cap,
+                qp_map=None if qp_map is None else qp_map.reshape(R, C),
+                slice_qp=qp)
+            recon = (out["recon_y"], out["recon_u"], out["recon_v"])
+            if deblock:
+                eff_map = None
+                if adaptive_qp:
+                    # The filter must see the decoder's per-MB QP:
+                    # mb_qp_delta is coded on cbp != 0 MBs only, so the
+                    # other MBs keep the running QP (spec 7.4.4), which
+                    # starts at the slice QP.
+                    coded = ((luma != 0).any(dim=3).any(dim=2)
+                             | (cdc != 0).any(dim=3).any(dim=2)
+                             | (cac != 0).any(dim=4).any(dim=3).any(dim=2))
+                    eff_map = _last_coded(qp_map, coded.reshape(-1),
+                                          qp).reshape(R, C)
+                recon = deblock_pframe_from_symbols(
+                    *recon, out["symbols"], qp, qp_c, R, C, qp_map=eff_map)
+            bits_f = bits.to(f32)
+            if bits_scale is not None:
+                # Estimated emitted size when the entropy stage differs from
+                # the device CAVLC pack (host CABAC transcode).
+                bits_f = bits_f * bits_scale
+            # Complexity model: bits ~ cplx / qstep  =>  cplx ~ bits * qstep.
+            cplx = 0.75 * cplx + 0.25 * bits_f * (
+                0.625 * torch.exp2(qp_f / 6.0))
+            buf = buf + bits_f - target
+            streams.append(stream)
+            bits_out.append(bits)
+            qps.append(qp)
+        return (torch.stack(streams), torch.stack(bits_out), torch.stack(qps),
+                recon, (qp_f, buf, cplx))

@@ -25,6 +25,13 @@ from ..ops import me as me_ops
 from ..ops import transform as T
 from ..ops.pad import edge_pad
 
+
+def chroma_qp_device(qp):
+    """Chroma QP of a luma QP tensor (0-d or per-MB), on its device (spec
+    Table 8-12), for the on-device rate control."""
+    return T._tables(qp.device)["cqp"][qp.long().clamp(0, 51)]
+
+
 # Extra halo beyond the full-pel search range: quarter-pel refinement moves
 # the integer base by up to 1 pixel and the 6-tap interpolation reaches 3
 # more samples.
@@ -201,7 +208,7 @@ def refine_subpel(cur, plane_g, plane_b, plane_h, plane_j, mv_full, R, C,
             best_cost)
 
 
-def _chroma_code(o_c, pred_c, qp_c: int):
+def _chroma_code(o_c, pred_c, qp_c):
     w_c = T.forward_4x4(_mb_blocks8(o_c - pred_c))
     dc2 = w_c[:, :, 0, 0].reshape(-1, 2, 2)
     z2 = T.quant_dc_2x2(T.hadamard_2x2(dc2), qp_c, intra=False)
@@ -215,9 +222,11 @@ def _chroma_code(o_c, pred_c, qp_c: int):
 
 
 def local_pframe_core(cur_y, cur_u, cur_v, ref_y_ext, ref_u_ext, ref_v_ext,
-                      qp: int, qp_c: int, search_range: int, n_rows: int,
-                      n_cols: int):
+                      qp, qp_c, search_range: int, n_rows: int, n_cols: int):
     """P-frame encode of an (n_rows, n_cols) MB grid.
+
+    qp, qp_c: luma and chroma QP as Python ints, as 0-d tensors (a QP the
+    rate loop computed on the device) or as per-MB (R*C,) tensors.
 
     ref_y_ext has `search_range + INTERP_HALO` extra rows above/below;
     ref_[uv]_ext have `search_range // 2 + 2`. MVs are refined to quarter-pel

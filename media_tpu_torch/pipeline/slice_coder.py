@@ -189,10 +189,16 @@ def parse_islice_mbs(br: BitReader, n_rows: int, n_cols: int, qp: int,
 
 def write_pslice_mbs(bw: BitWriter, *, mv: np.ndarray,
                      luma_levels: np.ndarray, cdc_levels: np.ndarray,
-                     cac_levels: np.ndarray) -> dict:
-    """Write all macroblocks of a P slice (P_L0_16x16 / P_Skip) at the slice
-    QP. mv: (R, C, 2) quarter-pel luma MVs; luma_levels: (R, C, 16, 16)
-    zig-zag. Returns {"n_skip": ...}."""
+                     cac_levels: np.ndarray,
+                     qp_map: np.ndarray | None = None,
+                     slice_qp: int | None = None) -> dict:
+    """Write all macroblocks of a P slice (P_L0_16x16 / P_Skip). mv:
+    (R, C, 2) quarter-pel luma MVs; luma_levels: (R, C, 16, 16) zig-zag.
+    qp_map: optional (R, C) per-MB luma QP; deltas against the running QP
+    (starting at slice_qp) are coded as mb_qp_delta on every MB with
+    cbp != 0, and MBs without a coded delta keep the running QP. Returns
+    {"n_skip": ...}."""
+    cur_qp = slice_qp
     n_rows, n_cols = mv.shape[:2]
     st = _MbGridCoder(n_rows, n_cols)
     mv_map: dict = {}
@@ -226,8 +232,18 @@ def write_pslice_mbs(bw: BitWriter, *, mv: np.ndarray,
             bw.se(this_mv[1] - py)
             mv_map[(r, c)] = this_mv
             bw.ue(int(tables.CBP_TO_CODE_INTER[cbp]))
-            if cbp:
+            if cbp and qp_map is None:
                 bw.se(0)  # mb_qp_delta (fixed-QP slice)
+            elif cbp:
+                want = int(qp_map[r, c])
+                delta = want - cur_qp
+                # mb_qp_delta lies in [-26, +25], with a mod-52 wrap
+                if delta > 25:
+                    delta -= 52
+                elif delta < -26:
+                    delta += 52
+                bw.se(delta)
+                cur_qp = want
             for g8 in range(4):
                 blks = [int(ZSCAN_TO_RASTER[g8 * 4 + k]) for k in range(4)]
                 if not (cbp_luma >> g8) & 1:

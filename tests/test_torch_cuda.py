@@ -192,3 +192,37 @@ def test_decode_on_cuda_matches_cpu(cuda_device, kernel):
             np.testing.assert_array_equal(getattr(a, p), getattr(b, p))
     for got, want in zip((out[0][-1].y, out[0][-1].u, out[0][-1].v), s.recon):
         np.testing.assert_array_equal(got, want.cpu().numpy())
+
+
+@pytest.mark.parametrize("adaptive", [False, True], ids=["frame_qp", "mb_qp"])
+def test_cbr_cabac_session_and_decode_on_cuda_match_cpu(cuda_device, adaptive):
+    """The reference operating point at 64x48: the CBR loop's QPs, the
+    transcoded CABAC AUs and the recon on the card equal the CPU's (which
+    the CPU tests hold to the JAX package), and the CABAC stream decodes on
+    the card to the same planes as on the CPU and to the encoder's recon."""
+    frames = _clip(64, 48, 9)
+    out, recon = [], []
+    for device in (cuda_device, "cpu"):
+        s = EncoderSession(EncoderConfig(
+            width=64, height=48, qp=30, gop_size=30, rc_mode="cbr",
+            bitrate=150_000, framerate=30, cabac=True, cabac_init_idc=1,
+            adaptive_qp=adaptive), device=device)
+        s.PIPELINE_CHUNK = 2
+        aus = [s.encode_frame(frames[0])] + s.encode_frames(frames[1:5])
+        aus += s.encode_frames_staged(s.upload_frames(frames[5:]))
+        out.append(aus)
+        recon.append([p.cpu() for p in s.recon])
+    assert out[0] == out[1]
+    for a, b in zip(*recon):
+        assert torch.equal(a, b)
+    decoded = []
+    for device in (cuda_device, "cpu"):
+        dec = TpuDecoder(device=device)
+        decoded.append([f for au in out[0] for f in dec.decode_annexb(au)])
+    assert len(decoded[0]) == len(decoded[1]) == 9
+    for a, b in zip(*decoded):
+        for p in "yuv":
+            np.testing.assert_array_equal(getattr(a, p), getattr(b, p))
+    for got, want in zip((decoded[0][-1].y, decoded[0][-1].u,
+                          decoded[0][-1].v), recon[0]):
+        np.testing.assert_array_equal(got, want.numpy())

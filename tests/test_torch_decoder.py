@@ -264,14 +264,23 @@ def test_load_state_continues_a_jax_decode(as_bytes, monkeypatch):
 
 
 def test_cabac_and_i4x4_streams_raise_naming_the_roadmap():
+    """I_4x4 macroblocks, CAVLC or CABAC, still raise and name their ROADMAP
+    item; a CABAC stream of I_16x16 macroblocks no longer raises: it decodes
+    to the JAX session's recon."""
     frames = clip(48, 32, 1)
-    for kw, match in ((dict(cabac=True), "items 9 and 15"),
+    for kw, match in ((dict(cabac=True), None),
+                      (dict(cabac=True, i4x4=True), "item 10"),
                       (dict(i4x4=True), "item 10")):
         sess = jcodec.EncoderSession(jcodec.EncoderConfig(
             width=48, height=32, qp=28, gop_size=30, deblock=False,
             entropy_mode="host", **kw))
         au = sess.encode_frame(frames[0])
         dec = tdec.TpuDecoder(device="cpu")
+        if match is None:
+            (frame,) = dec.decode_annexb(au)
+            for got, want in zip((frame.y, frame.u, frame.v), sess.recon):
+                np.testing.assert_array_equal(got, np.asarray(want))
+            continue
         with pytest.raises(tdec.UnsupportedStream, match=match):
             dec.decode_annexb(au)
         assert dec._asm is None and dec.frames == []

@@ -136,6 +136,16 @@ def test_cuda_device_raises_without_cuda():
     ("b_frames", 1), ("lossless", True), ("adaptive_qp", True),
 ])
 def test_configs_outside_the_slice_raise(field, value):
+    """What the port does not cover raises and names its ROADMAP item. CABAC,
+    CBR and adaptive_qp came inside the slice: they construct, and together
+    with a second slice they still raise."""
+    if field in ("cabac", "rc_mode", "adaptive_qp"):
+        s = EncoderSession(cfg(EncoderConfig, **{field: value}), device="cpu")
+        assert s.pps.entropy_coding_mode == int(field == "cabac")
+        with pytest.raises(NotImplementedError, match="item 10"):
+            EncoderSession(cfg(EncoderConfig, rc_mode="cbr", cabac=True,
+                               num_slices=2), device="cpu")
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         EncoderSession(cfg(EncoderConfig, **{field: value}), device="cpu")
 
