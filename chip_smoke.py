@@ -53,7 +53,26 @@ Phases, one line each; nothing is caught, any failure exits non-zero:
      with CAVLC against their goldens; no refusal of a C++ routine; one
      whole-frame kernel launch per picture;
   8. CABAC decode: TpuDecoder() on phase 7's IDR + 8 P: planes equal to the
-     encoder's recon and to the JAX TpuDecoder's digests, fps and the split.
+     encoder's recon and to the JAX TpuDecoder's digests, fps and the split;
+  9. the operating point as the JAX package's bench defines it, with the
+     I_4x4 / I_16x16 decision in the IDR: phase 7's first run with
+     i4x4=True, held to its golden in the same way; the IDR's time, size, QP
+     and count of I_4x4 macroblocks (> 0, the golden's); then TpuDecoder()
+     on its IDR + 8 P, as in phase 8;
+ 10. four slices a picture: (a) CAVLC at constant QP with
+     deblock_across_slices=False (idc 2: the whole-frame kernel with
+     slice-local strengths), IDR + 4 P through the host C++ writers, the P
+     pictures decoded by both deblock routes (one of them through the 254
+     wave-step launches) to the encoder's recon; (b) CABAC under CBR (the
+     host rate loop, a QP per frame), IDR + 4 P, QPs the golden's, decoded
+     by TpuDecoder();
+ 11. the IBPBP B-GOP (b_frames=1): 5 frames through encode_frames come out
+     as IDR, P, B, P, B; three whole-frame kernel launches (no B picture is
+     deblocked); ms per anchor and per B picture; TpuDecoder refuses the
+     stream as the JAX one does;
+ 12. lossless (all I_PCM): one frame, assembled on the host; the samples
+     read back out of the AU equal the input.
+Phases 9 to 12 hold every AU and decoded picture to the golden as well.
 The second-to-last line is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -141,7 +160,29 @@ RATE_RUNS = {
     "cbr_cabac_aq": (dict(cabac=True, cabac_init_idc=1, adaptive_qp=True,
                           **CBR), 4, 0),
     "cbr_cavlc": (dict(CBR), 4, 0),
+    # The operating point as the JAX package's bench defines it: with the
+    # I_4x4 / I_16x16 decision in the IDR.
+    "cbr_cabac_i4x4": (dict(cabac=True, cabac_init_idc=1, i4x4=True, **CBR),
+                       N_P, N_P),
 }
+# The runs of phase 7; phase 9 drives the last entry.
+RATE_RUNS_PHASE7 = ("cbr_cabac", "cbr_cabac_aq", "cbr_cavlc")
+I4_RUN = "cbr_cabac_i4x4"
+
+# The other tools of EncoderConfig, each as (fields beside
+# width/height/qp/gop_size, frames of the clip; the first is the IDR).
+N_TOOL = 5
+TOOL_RUNS = {
+    "slices4_cavlc": (dict(num_slices=4, deblock_across_slices=False),
+                      N_TOOL),
+    "slices4_cabac_cbr": (dict(num_slices=4, cabac=True, cabac_init_idc=1,
+                               **CBR), N_TOOL),
+    "bgop": (dict(b_frames=1), N_TOOL),
+    "lossless": (dict(lossless=True), 1),
+}
+# The runs whose stream the device decoder takes (B and I_PCM streams are
+# outside it in both packages).
+TOOL_RUNS_DECODED = ("slices4_cavlc", "slices4_cabac_cbr")
 
 
 def _host(x):
@@ -189,16 +230,89 @@ def rate_record(sess, aus, log) -> dict:
     }
 
 
+def tap_i4_mbs(sess) -> list:
+    """Record the number of I_4x4 macroblocks of every intra frame the
+    session encodes (0 without the I_4x4 decision). Works on the JAX
+    package's session as on the port's."""
+    enc = sess._frame_encoder
+    inner = enc.encode_iframe
+    log: list = []
+
+    def tapped(*a, **kw):
+        res = inner(*a, **kw)
+        log.append(0 if res.is_i4 is None else int(np.asarray(res.is_i4).sum()))
+        return res
+
+    enc.encode_iframe = tapped
+    return log
+
+
+def tap_slice_qps(sess) -> list:
+    """Record the QP of every P picture the session assembles from host
+    symbols (the multi-slice paths; under CBR the host rate loop's QP).
+    Works on the JAX package's session as on the port's."""
+    inner = sess._pslice_au
+    log: list = []
+
+    def tapped(fields, qp=None, **kw):
+        log.append(int(sess.cfg.qp if qp is None else qp))
+        return inner(fields, qp=qp, **kw)
+
+    sess._pslice_au = tapped
+    return log
+
+
+def drive_tool_run(sess, bufs, n: int, sync=lambda: None) -> dict:
+    """n frames of the clip through one session: the IDR through
+    encode_frame, the rest through one call of encode_frames (a B-GOP
+    session takes all n through encode_frames, so that the call reorders
+    them itself). Works on the JAX package's session as on the port's.
+    Returns "aus", "qps" (tap_slice_qps'), "i4_mbs", "recon_idr" (the
+    reference planes after the first frame; None for a B-GOP), "t_idr" and
+    "t_rest" in seconds."""
+    out = {"qps": tap_slice_qps(sess), "i4_mbs": tap_i4_mbs(sess),
+           "recon_idr": None, "t_idr": 0.0}
+
+    def timed(fn):
+        sync()
+        t0 = time.perf_counter()
+        res = fn()
+        sync()
+        return res, time.perf_counter() - t0
+
+    if sess.cfg.b_frames:
+        out["aus"], out["t_rest"] = timed(lambda: sess.encode_frames(bufs[:n]))
+        return out
+    idr, out["t_idr"] = timed(lambda: sess.encode_frame(bufs[0]))
+    out["recon_idr"] = tuple(sess.recon)
+    rest, out["t_rest"] = timed(lambda: sess.encode_frames(bufs[1:n]))
+    out["aus"] = [idr] + rest
+    return out
+
+
+def tool_record(sess, run) -> dict:
+    """What a run of TOOL_RUNS is held to: a digest and a size per AU, the
+    QP of every P picture assembled on the host, and under CBR the final
+    state of the host rate loop."""
+    rec = {"au_sha256": [hashlib.sha256(a).hexdigest() for a in run["aus"]],
+           "au_bytes": [len(a) for a in run["aus"]],
+           "qps": list(run["qps"])}
+    if sess.cfg.rc_mode == "cbr":
+        rec["rc_final"] = {k: float(v) for k, v in sess.rc_state.items()}
+    return rec
+
+
 def drive_rate_run(sess, bufs, n_p: int, n_staged: int, sync=lambda: None):
     """IDR through encode_frame, n_p P frames through encode_frames, then
     n_staged through upload_frames + encode_frames_staged, each phase timed
     on the host clock between calls of `sync` (the device's synchronise,
     where there is one). Works on the JAX package's session as on the
     port's. Returns a dict: "aus" (the IDR and the first run), "staged",
-    "log" (tap_rate_loop's), "recon_idr" and "recon_run" (the reference
+    "log" (tap_rate_loop's), "i4_mbs" (tap_i4_mbs'), "recon_idr" and "recon_run" (the reference
     planes after the IDR and after the first run), "t_idr", "t_run",
     "t_staged" in seconds."""
-    out = {"log": tap_rate_loop(sess), "staged": [], "t_staged": 0.0}
+    out = {"log": tap_rate_loop(sess), "i4_mbs": tap_i4_mbs(sess),
+           "staged": [], "t_staged": 0.0}
 
     def timed(fn):
         sync()
@@ -1090,11 +1204,10 @@ def _rate_stage_split(sess, frame_buf, qp_f: float, smi: str):
     return t_kernel
 
 
-def phase_rate_path(smi: str, golden: dict, bufs):
-    """The reference operating point and its two neighbours at full width.
-    Returns (whole-frame kernel launches, the CBR + CABAC run's IDR + P AUs,
-    its recon after the IDR, its recon after encode_frames, the kernel's ms
-    in per-MB-QP mode on a frame of the clip)."""
+def phase_rate_path(smi: str, golden: dict, bufs, names):
+    """The rate-controlled runs `names` of RATE_RUNS at full width, each
+    held to its golden. Returns (whole-frame kernel launches, {name:
+    (session, drive_rate_run's dict, rate_record's dict)})."""
     import torch
 
     from media_tpu_torch import native
@@ -1113,7 +1226,8 @@ def phase_rate_path(smi: str, golden: dict, bufs):
     enc_mod.deblock_pframe_from_symbols = counting
     total_launches = 0
     keep = {}
-    for name, (fields, n_p, n_staged) in RATE_RUNS.items():
+    for name in names:
+        fields, n_p, n_staged = RATE_RUNS[name]
         want = golden[name]
         sess = EncoderSession(EncoderConfig(
             width=WIDTH, height=HEIGHT, qp=QP, gop_size=300, **fields))
@@ -1159,19 +1273,26 @@ def phase_rate_path(smi: str, golden: dict, bufs):
               f"Mbit/s over {n_frames} frames against a target of "
               f"{sess.cfg.bitrate / 1e6:.3f} Mbit/s (buffer "
               f"{got['rc_final']['buf'] / 1e6:.3f} Mbit over) | {smi}")
+        if fields.get("i4x4"):
+            # The IDR really holds I_4x4 macroblocks, as many as the
+            # golden's; its QP is the header's (the controller's start - 2).
+            if run["i4_mbs"] != want["i4_mbs"] or not run["i4_mbs"][0] > 0:
+                raise AssertionError(f"{name}: I_4x4 macroblocks "
+                                     f"{run['i4_mbs']} against the golden's "
+                                     f"{want['i4_mbs']}")
+            print(f"[ops] {name} IDR with the I_4x4 decision: "
+                  f"{t_idr * 1e3:.1f} ms, {len(aus[0])} B, QP "
+                  f"{sess.pps.pic_init_qp - 2}, {run['i4_mbs'][0]} of "
+                  f"{R_MB * C_MB} macroblocks I_4x4 (== golden) | {smi}")
         keep[name] = (sess, run, got)
     enc_mod.deblock_pframe_from_symbols = inner
-
-    sess, _run, got = keep["cbr_cabac_aq"]
-    t_kernel = _rate_stage_split(sess, bufs[5], got["rc_final"]["qp"], smi)
-    run = keep["cbr_cabac"][1]
-    return (total_launches, run["aus"], run["recon_idr"], run["recon_run"],
-            t_kernel)
+    return total_launches, keep
 
 
-def phase_cabac_decode(smi: str, golden: dict, aus, recon_idr, recon_run):
-    """TpuDecoder on the CBR + CABAC stream. Returns the whole-frame
-    kernel's launches."""
+def phase_cabac_decode(smi: str, want, aus, recon_idr, recon_run,
+                       what: str = "CABAC"):
+    """TpuDecoder on a CBR + CABAC stream, against the recorded digests
+    `want`. Returns the whole-frame kernel's launches."""
     import torch
 
     from media_tpu_torch import native
@@ -1189,17 +1310,14 @@ def phase_cabac_decode(smi: str, golden: dict, aus, recon_idr, recon_run):
     if len(frames) != len(aus) or launches != len(frames):
         raise AssertionError(f"CABAC decode: {len(frames)} pictures and "
                              f"{launches} launches for {len(aus)} AUs")
-    for frame, planes, what in ((frames[0], recon_idr, "IDR"),
-                                (frames[-1], recon_run, "last P")):
-        for got, want, name in zip((frame.y, frame.u, frame.v), planes, "yuv"):
-            if not np.array_equal(got, want.cpu().numpy()):
-                raise AssertionError(f"CABAC decode: {what} plane {name} "
-                                     "differs from the encoder's recon")
+    _frame_equals(frames[0], recon_idr, f"{what} decode: IDR vs the "
+                                        "encoder's recon")
+    _frame_equals(frames[-1], recon_run, f"{what} decode: last P vs the "
+                                         "encoder's recon")
     digests = [planes_sha(f) for f in frames]
-    want = golden["cbr_cabac"]["decoded_sha256"]
     if digests != want:
         bad = [i for i, (a, b) in enumerate(zip(digests, want)) if a != b]
-        raise AssertionError(f"CABAC decode: pictures {bad} differ from the "
+        raise AssertionError(f"{what} decode: pictures {bad} differ from the "
                              "JAX TpuDecoder's recorded digests")
     if sum(native.fallbacks.values()):
         raise AssertionError(f"CABAC decode: native fallbacks "
@@ -1207,16 +1325,327 @@ def phase_cabac_decode(smi: str, golden: dict, aus, recon_idr, recon_run):
     n_p = len(frames) - 1
     p_s = sum(t["parse_ms"] + t["upload_ms"] + t["device_ms"]
               for t in dec.timings if not t["idr"]) / 1e3
-    print(f"[decode] CABAC {WIDTH}x{HEIGHT} IDR + {n_p} P of the CBR stream "
+    print(f"[decode] {what} {WIDTH}x{HEIGHT} IDR + {n_p} P of the CBR stream "
           f"on cuda: pictures == encoder recon == JAX TpuDecoder golden "
           f"(sha256 {digests[-1][:16]}), deblock launches {launches}/"
           f"{len(frames)}, native fallbacks 0")
-    print(f"[decode] CABAC fps {len(frames) / t_all:.3f} over all "
+    print(f"[decode] {what} fps {len(frames) / t_all:.3f} over all "
           f"{len(frames)} pictures, P pictures alone {n_p / p_s:.3f} (each "
           f"stage synchronised; C++ CABAC parsers) | {smi}")
-    print(f"[decode] CABAC ms per picture: {_split(dec.timings, True)}; "
+    print(f"[decode] {what} ms per picture: {_split(dec.timings, True)}; "
           f"{_split(dec.timings, False)} | {smi}")
     return launches
+
+
+def _i4_idr_split(smi: str, bufs) -> None:
+    """Where the host's time goes in one I_4x4 IDR (QP 28, the operating
+    point's): the stages enqueue small kernels without waiting for them and
+    the device is idle between them, so the host clock inside a stage is
+    the cost of its launches. Beside it the same frame as I_16x16."""
+    import torch
+
+    from media_tpu_torch.ops import intra as intra_ops
+    from media_tpu_torch.pipeline import encoder as enc_mod
+    from media_tpu_torch.pipeline.encoder import FrameEncoder
+    from media_tpu_torch.utils import yuv
+
+    enc = FrameEncoder(C_MB * 16, R_MB * 16)
+    planes = [yuv.pad_to_mb_grid(p, size) for p, size in zip(
+        yuv.split_i420(bufs[0], WIDTH, HEIGHT), (16, 8, 8))]
+    spent = {"chain": 0.0, "pred": 0.0, "satd": 0.0}
+    patched = ((enc_mod, "i4_chain", "chain", lambda *a: True),
+               (intra_ops, "pred_4x4_all", "pred", lambda *a: True),
+               (intra_ops, "satd_cost", "satd", lambda p, _o: p.shape[1] == 9))
+    inner = {}
+    for mod, attr, key, when in patched:
+        def timed(*a, _fn=getattr(mod, attr), _key=key, _when=when):
+            if not _when(*a):
+                return _fn(*a)
+            t0 = time.perf_counter()
+            out = _fn(*a)
+            spent[_key] += time.perf_counter() - t0
+            return out
+        inner[(mod, attr)] = getattr(mod, attr)
+        setattr(mod, attr, timed)
+    total = {}
+    for i4x4 in (True, False):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        enc.encode_iframe(*planes, 28, deblock=True, i4x4=i4x4)
+        torch.cuda.synchronize()
+        total[i4x4] = (time.perf_counter() - t0) * 1e3
+    for (mod, attr), fn in inner.items():
+        setattr(mod, attr, fn)
+    chain, pred, satd = (spent[k] * 1e3 for k in ("chain", "pred", "satd"))
+    print(f"[i4x4] encode_iframe {WIDTH}x{HEIGHT} QP28 with the I_4x4 "
+          f"decision {total[True]:.1f} ms over {2 * (R_MB - 1) + C_MB} waves, "
+          f"host clock: the 16-step chain {chain:.1f} (pred_4x4_all "
+          f"{pred:.1f}, nine-mode SATD {satd:.1f}, argmin + transform + "
+          f"quant + recon + canvas {chain - pred - satd:.1f}), the I_16x16 "
+          f"candidate, chroma, select, scatters and deblock "
+          f"{total[True] - chain:.1f}; the same frame without the decision "
+          f"{total[False]:.1f} ms over {R_MB + C_MB - 1} waves | {smi}")
+
+
+def _np_planes(planes):
+    return tuple(p.cpu().numpy() if hasattr(p, "cpu") else np.asarray(p)
+                 for p in planes)
+
+
+def _frame_equals(frame, planes, what: str) -> None:
+    for got, want, name in zip((frame.y, frame.u, frame.v),
+                               _np_planes(planes), "yuv"):
+        if got.shape != want.shape or not np.array_equal(got, want):
+            raise AssertionError(f"{what}: plane {name} differs")
+
+
+def _tool_session(name: str):
+    from media_tpu_torch.pipeline.codec import EncoderConfig, EncoderSession
+
+    fields, n = TOOL_RUNS[name]
+    sess = EncoderSession(EncoderConfig(
+        width=WIDTH, height=HEIGHT, qp=QP, gop_size=300, **fields))
+    sess.PIPELINE_CHUNK = CHUNK
+    return sess, n
+
+
+def _check_tool_record(name: str, sess, run, want: dict) -> dict:
+    """AUs and QPs exact; under CBR the host rate loop's final floats within
+    RATE_FLOAT_TOL. Names the first AU that differs."""
+    got = tool_record(sess, run)
+    _first_difference(name, run["aus"], want["au_sha256"], want["au_bytes"])
+    if len(run["aus"]) != len(want["au_sha256"]) or got["qps"] != want["qps"]:
+        raise AssertionError(f"{name}: {len(run['aus'])} AUs, QPs "
+                             f"{got['qps']} against the golden's "
+                             f"{len(want['au_sha256'])}, {want['qps']}")
+    for k, b in want.get("rc_final", {}).items():
+        a = got["rc_final"][k]
+        scale = max(abs(a), abs(b), sess._rc_target if k == "buf" else 0.0)
+        if scale and abs(a - b) / scale > RATE_FLOAT_TOL:
+            raise AssertionError(f"{name}: host rate loop's {k} {a!r} "
+                                 f"against {b!r}")
+    return got
+
+
+def phase_multislice(smi: str, golden: dict, bufs):
+    """Four slices a picture, both entropy coders, both deblocking idc
+    values, both deblock routes of the decoder. Returns the launches of
+    (the whole-frame kernel, the wave-step kernel)."""
+    import torch
+
+    from media_tpu_torch import native
+    from media_tpu_torch.ops.deblock_pallas import deblock_wave_step
+    from media_tpu_torch.ops.deblock_wave import deblock_wave, n_waves
+    from media_tpu_torch.pipeline.decoder_tpu import TpuDecoder
+
+    deblock_wave.launches = deblock_wave_step.launches = 0
+    sync = torch.cuda.synchronize
+
+    # ---- (a) CAVLC, constant QP, the filter kept inside each slice
+    name = "slices4_cavlc"
+    want = golden[name]
+    sess, n = _tool_session(name)
+    if (len(sess.slice_rows) != 4 or sess._deblock_idc != 2
+            or len(sess._frame_encoder.deblock_slice_starts) != 3):
+        raise AssertionError(f"{name}: slices {sess.slice_rows}, idc "
+                             f"{sess._deblock_idc}")
+    run = drive_tool_run(sess, bufs, n, sync)
+    _check_tool_record(name, sess, run, want)
+    if deblock_wave.launches != n:
+        raise AssertionError(f"{name}: {deblock_wave.launches} whole-frame "
+                             f"launches for {n} frames")
+    print(f"[slices] {name} {WIDTH}x{HEIGHT} QP{QP} IDR + {n - 1} P, slices "
+          f"at MB rows {[r0 for r0, _ in sess.slice_rows]}, idc 2: AUs == JAX "
+          f"golden, deblock launches {deblock_wave.launches}/{n}; IDR "
+          f"{run['t_idr'] * 1e3:.1f} ms, P frames (device core, symbols to "
+          f"the host, C++ CAVLC writer per slice) "
+          f"{(n - 1) / run['t_rest']:.3f} fps | {smi}")
+    # The P pictures from the encoder's recon after the IDR (a CAVLC I
+    # picture parses in Python for seconds): route frame all four, route
+    # wave the first.
+    frames = {}
+    for kernel, n_dec in (("frame", n - 1), ("wave", 1)):
+        dec = TpuDecoder(deblock_kernel=kernel, profile=True)
+        dec.load_state(sess.sps, sess.pps, _np_planes(run["recon_idr"]))
+        frames[kernel] = [f for au in run["aus"][1 : 1 + n_dec]
+                          for f in dec.decode_annexb(au)]
+        digests = [planes_sha(f) for f in frames[kernel]]
+        if digests != want["decoded_sha256"][1 : 1 + n_dec]:
+            raise AssertionError(f"{name}: route {kernel} decoded pictures "
+                                 "differ from the JAX TpuDecoder's digests")
+        print(f"[slices] {name} decode, route {kernel}, ms per picture: "
+              f"{_split(dec.timings, False)} (C++ CAVLC parser on the last "
+              f"slice of a picture, Python parser on the three above) | "
+              f"{smi}")
+    _frame_equals(frames["frame"][-1], sess.recon,
+                  f"{name}: last decoded P vs encoder recon")
+    f0 = frames["frame"][0]
+    _frame_equals(frames["wave"][0], (f0.y, f0.u, f0.v),
+                  f"{name}: route wave vs route frame")
+    step_launches = deblock_wave_step.launches
+    if (step_launches != n_waves(R_MB, C_MB)
+            or deblock_wave.launches != n + n - 1):
+        raise AssertionError(
+            f"{name}: {step_launches} wave-step launches (expected "
+            f"{n_waves(R_MB, C_MB)}), {deblock_wave.launches} whole-frame "
+            f"launches (expected {2 * n - 1})")
+    # The C++ CAVLC P parser refuses a slice that ends above the picture's
+    # last row (the Python parser then takes it), and nothing else here.
+    refused = dict(native.fallbacks)
+    if refused != {"parse_pslice_native": 3 * n}:
+        raise AssertionError(f"{name}: native fallbacks {refused}, expected "
+                             f"3 slices of each of {n} decoded pictures")
+    native.fallbacks.clear()
+    print(f"[slices] {name}: {n - 1} P pictures by route frame == JAX "
+          f"TpuDecoder golden == encoder recon; picture 1 by route wave "
+          f"({step_launches} wave-step launches, slice-local strengths) == "
+          f"route frame; {3 * n} slices through the Python parser")
+    frame_launches = deblock_wave.launches
+
+    # ---- (b) CABAC under CBR: the host rate loop, the filter across slices
+    name = "slices4_cabac_cbr"
+    want = golden[name]
+    sess, n = _tool_session(name)
+    if len(sess.slice_rows) != 4 or sess._deblock_idc != 0:
+        raise AssertionError(f"{name}: slices {sess.slice_rows}, idc "
+                             f"{sess._deblock_idc}")
+    deblock_wave.launches = 0
+    run = drive_tool_run(sess, bufs, n, sync)
+    got = _check_tool_record(name, sess, run, want)
+    if deblock_wave.launches != n or sum(native.fallbacks.values()):
+        raise AssertionError(f"{name}: {deblock_wave.launches} whole-frame "
+                             f"launches for {n} frames, native fallbacks "
+                             f"{dict(native.fallbacks)}")
+    print(f"[slices] {name} {WIDTH}x{HEIGHT} IDR + {n - 1} P, idc 0: AUs and "
+          f"QPs == JAX golden (qps {got['qps']}, IDR {len(run['aus'][0])} "
+          f"B), deblock launches {deblock_wave.launches}/{n}, native "
+          f"fallbacks 0; IDR {run['t_idr'] * 1e3:.1f} ms, P frames (a host "
+          f"read of the AU's size per frame, C++ CABAC writer per slice) "
+          f"{(n - 1) / run['t_rest']:.3f} fps | {smi}")
+    dec = TpuDecoder(profile=True)
+    decoded = [f for au in run["aus"] for f in dec.decode_annexb(au)]
+    if [planes_sha(f) for f in decoded] != want["decoded_sha256"]:
+        raise AssertionError(f"{name}: decoded pictures differ from the JAX "
+                             "TpuDecoder's digests")
+    _frame_equals(decoded[0], run["recon_idr"], f"{name}: decoded IDR")
+    _frame_equals(decoded[-1], sess.recon, f"{name}: last decoded P")
+    if deblock_wave.launches != 2 * n or sum(native.fallbacks.values()):
+        raise AssertionError(f"{name}: {deblock_wave.launches} whole-frame "
+                             f"launches after the decode, native fallbacks "
+                             f"{dict(native.fallbacks)}")
+    print(f"[slices] {name} decode: {n} pictures == JAX TpuDecoder golden == "
+          f"encoder recon; ms per picture: {_split(dec.timings, True)}; "
+          f"{_split(dec.timings, False)} (C++ CABAC parsers; the Python "
+          f"CABAC parser on the P slices that end above the picture's last "
+          f"row) | {smi}")
+    return frame_launches + deblock_wave.launches, step_launches
+
+
+def phase_bgop(smi: str, golden: dict, bufs) -> int:
+    """The IBPBP B-GOP. Returns the whole-frame kernel's launches."""
+    import torch
+
+    from media_tpu_torch.ops.deblock_wave import deblock_wave
+    from media_tpu_torch.pipeline.decoder_tpu import TpuDecoder
+    from media_tpu_torch.pipeline.slice_coder import UnsupportedStream
+
+    name = "bgop"
+    sess, n = _tool_session(name)
+    times = {"_encode_p_anchor": [], "_encode_b": []}
+    for attr, log in times.items():
+        def timed(*a, _inner=getattr(sess, attr), _log=log, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = _inner(*a, **kw)
+            torch.cuda.synchronize()
+            _log.append((time.perf_counter() - t0) * 1e3)
+            return out
+        setattr(sess, attr, timed)
+    deblock_wave.launches = 0
+    run = drive_tool_run(sess, bufs, n, torch.cuda.synchronize)
+    _check_tool_record(name, sess, run, golden[name])
+    launches = deblock_wave.launches
+    n_anchor, n_b = len(times["_encode_p_anchor"]), len(times["_encode_b"])
+    if (launches, n_anchor, n_b) != (3, 2, 2):
+        raise AssertionError(f"{name}: {launches} whole-frame launches, "
+                             f"{n_anchor} anchors, {n_b} B pictures")
+    if sess.sps.pic_order_cnt_type != 0 or sess.sps.max_num_ref_frames != 2:
+        raise AssertionError(f"{name}: SPS {sess.sps}")
+    try:
+        TpuDecoder().decode_annexb(run["aus"][0])
+    except UnsupportedStream:
+        pass
+    else:
+        raise AssertionError(f"{name}: TpuDecoder took a POC type 0 stream")
+    print(f"[bgop] {WIDTH}x{HEIGHT} QP{QP} (B pictures QP{QP + 2}) {n} frames "
+          f"through encode_frames -> IDR, P, B, P, B: AUs == JAX golden "
+          f"(sizes {[len(a) for a in run['aus']]}), deblock launches "
+          f"{launches} (IDR and two anchors, none for B); ms per anchor "
+          f"{np.mean(times['_encode_p_anchor']):.1f}, per B picture (two "
+          f"searches, Python B-slice writer) {np.mean(times['_encode_b']):.1f}"
+          f"; TpuDecoder refuses the stream | {smi}")
+    return launches
+
+
+def phase_lossless(smi: str, golden: dict, bufs) -> None:
+    """Lossless: one all-I_PCM picture, assembled on the host."""
+    from media_tpu_torch.core import nal as nal_mod
+    from media_tpu_torch.core.bitstream import BitReader
+    from media_tpu_torch.core.syntax import SliceHeader
+    from media_tpu_torch.ops.deblock_wave import deblock_wave
+    from media_tpu_torch.pipeline.decoder_tpu import TpuDecoder
+    from media_tpu_torch.pipeline.slice_coder import UnsupportedStream
+
+    name = "lossless"
+    sess, n = _tool_session(name)
+    deblock_wave.launches = 0
+    t0 = time.perf_counter()
+    run = drive_tool_run(sess, bufs, n)
+    t_ms = (time.perf_counter() - t0) * 1e3
+    _check_tool_record(name, sess, run, golden[name])
+    if deblock_wave.launches or not all(
+            isinstance(p, np.ndarray) for p in sess.recon):
+        raise AssertionError(f"{name}: the lossless path touched the device")
+    # Read the samples back out of the AU: after the slice header, mb_type
+    # ue(25) and the alignment zeros, every MB is 384 bytes of samples, and
+    # every MB but the first has the same two bytes of type and alignment
+    # before them.
+    mbs = []
+    for nu in nal_mod.iter_nal_units(run["aus"][0]):
+        if nu.nal_type != 5:
+            continue
+        br = BitReader(nu.rbsp)
+        SliceHeader.parse(br, sess.sps, sess.pps, nal_type=5,
+                          nal_ref_idc=nu.nal_ref_idc)
+        if br.ue() != 25:
+            raise AssertionError(f"{name}: first mb_type is not I_PCM")
+        start = -(-br.bit_position // 8)
+        body = np.frombuffer(nu.rbsp, np.uint8)[start - 2 : -1]
+        mbs.append(body.reshape(-1, 386)[:, 2:])
+    mbs = np.concatenate(mbs).reshape(R_MB, C_MB, 384)
+    y = mbs[..., :256].reshape(R_MB, C_MB, 16, 16).transpose(
+        0, 2, 1, 3).reshape(R_MB * 16, C_MB * 16)
+    u, v = (mbs[..., a : a + 64].reshape(R_MB, C_MB, 8, 8).transpose(
+        0, 2, 1, 3).reshape(R_MB * 8, C_MB * 8) for a in (256, 320))
+    src = np.frombuffer(bufs[0], np.uint8)
+    n_y = WIDTH * HEIGHT
+    for got, want, w, h, what in (
+            (y, src[:n_y], WIDTH, HEIGHT, "y"),
+            (u, src[n_y : n_y + n_y // 4], WIDTH // 2, HEIGHT // 2, "u"),
+            (v, src[n_y + n_y // 4 :], WIDTH // 2, HEIGHT // 2, "v")):
+        if not np.array_equal(got[:h, :w], want.reshape(h, w)):
+            raise AssertionError(f"{name}: plane {what} read back out of the "
+                                 "AU differs from the input")
+    try:
+        TpuDecoder().decode_annexb(run["aus"][0])
+    except UnsupportedStream:
+        pass
+    else:
+        raise AssertionError(f"{name}: TpuDecoder took an I_PCM stream")
+    print(f"[lossless] {WIDTH}x{HEIGHT} one frame, all I_PCM: AU == JAX "
+          f"golden ({len(run['aus'][0])} B), the {WIDTH}x{HEIGHT} samples in "
+          f"the AU equal the input, no device touched, host {t_ms:.1f} ms; "
+          f"TpuDecoder refuses the stream | {smi}")
 
 
 def main() -> None:
@@ -1242,25 +1671,46 @@ def main() -> None:
                                                               bufs)
     dec_launches, step_launches = phase_decode_path(smi, golden, aus,
                                                     recon_idr, recon_run)
-    rate_launches, aus, recon_idr, recon_run, t_per_mb = phase_rate_path(
-        smi, golden, bufs)
-    cabac_launches = phase_cabac_decode(smi, golden, aus, recon_idr,
-                                        recon_run)
+    rate_launches, keep = phase_rate_path(smi, golden, bufs,
+                                          RATE_RUNS_PHASE7)
+    sess, _run, got = keep["cbr_cabac_aq"]
+    t_per_mb = _rate_stage_split(sess, bufs[5], got["rc_final"]["qp"], smi)
+    run = keep["cbr_cabac"][1]
+    cabac_launches = phase_cabac_decode(
+        smi, golden["cbr_cabac"]["decoded_sha256"], run["aus"],
+        run["recon_idr"], run["recon_run"])
+    del keep, sess, run
+    i4_launches, keep = phase_rate_path(smi, golden, bufs, (I4_RUN,))
+    run = keep[I4_RUN][1]
+    i4_launches += phase_cabac_decode(
+        smi, golden[I4_RUN]["decoded_sha256"], run["aus"], run["recon_idr"],
+        run["recon_run"], what="CABAC + I_4x4")
+    del keep, run
+    _i4_idr_split(smi, bufs)
+    slice_launches, slice_step_launches = phase_multislice(smi, golden, bufs)
+    bgop_launches = phase_bgop(smi, golden, bufs)
+    phase_lossless(smi, golden, bufs)
     print(json.dumps({"kernels": [
         {"name": "deblock_wave", "route": "cuda",
          "source": "media_tpu_torch/csrc/deblock_wave.cu",
          "replaces": "media_tpu/ops/deblock_wave_pallas.py:230",
          "launches": (enc_launches + dec_launches + rate_launches
-                      + cabac_launches),
+                      + cabac_launches + i4_launches + slice_launches
+                      + bgop_launches),
          "launches_encode_path": enc_launches,
          "launches_decode_path": dec_launches,
          "launches_rate_path": rate_launches,
          "launches_cabac_decode_path": cabac_launches,
+         "launches_i4x4_operating_point": i4_launches,
+         "launches_multislice": slice_launches,
+         "launches_bgop": bgop_launches,
          "per_mb_qp_ms_on_clip_frame": t_per_mb, **krec},
         {"name": "deblock_wave_step", "route": "cuda",
          "source": "media_tpu_torch/csrc/deblock_wave_step.cu",
          "replaces": "media_tpu/ops/deblock_pallas.py:96",
-         "launches": step_launches, **krec_step}]}))
+         "launches": step_launches + slice_step_launches,
+         "launches_decode_path": step_launches,
+         "launches_multislice": slice_step_launches, **krec_step}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -228,18 +228,22 @@ def cabac_write_pslice_native(mv, luma, cdc, cac, qp: int,
 
 
 def cabac_write_islice_native(mode16, chroma_mode, dc, ac, cdc, cac,
-                              qp: int) -> bytes | None:
-    """CABAC I-slice payload (I_16x16 MBs) via the C++ packer,
-    byte-identical to entropy.cabac_slice.write_islice_cabac. None: the
-    routine refused."""
+                              qp: int, is_i4=None, modes4=None,
+                              luma4_levels=None) -> bytes | None:
+    """CABAC I-slice payload via the C++ packer, byte-identical to
+    entropy.cabac_slice.write_islice_cabac. is_i4 (R, C) bool, modes4
+    (R, C, 16) and luma4_levels (R, C, 16, 16) mark and carry the I_4x4
+    MBs; without them every MB is I_16x16. None: the routine refused."""
     lib = load()
     R, C = mode16.shape
     out, out_p, cap = _out_bytes(R, C)
     _keep, ptrs = _i32_all(mode16, chroma_mode, dc, ac, cdc, cac)
     _init, init_p = _i32(INIT_MN_I)
-    # is_i4 / modes4 / luma4 null: every MB is I_16x16.
-    n = lib.mtpu_cabac_write_slice_i(*ptrs, None, None, None, R, C, int(qp),
-                                     init_p, out_p, cap)
+    i4_ptrs = [None, None, None]  # null: every MB is I_16x16
+    if is_i4 is not None:
+        _keep4, i4_ptrs = _i32_all(is_i4, modes4, luma4_levels)
+    n = lib.mtpu_cabac_write_slice_i(*ptrs, *i4_ptrs, R, C, int(qp), init_p,
+                                     out_p, cap)
     if n < 0:
         return _refused("cabac_write_islice_native")
     return out[:n].tobytes()

@@ -1,15 +1,21 @@
-"""H.264 intra prediction (spec 8.3.3 luma 16x16, 8.3.4 chroma 8x8), batched.
+"""H.264 intra prediction (spec 8.3.1 luma 4x4, 8.3.3 luma 16x16, 8.3.4
+chroma 8x8), batched.
 
-PyTorch twin of media_tpu/ops/intra.py (I_16x16 and chroma only; the I_4x4
-modes are not ported yet). Inputs are neighbour vectors (reconstructed top
-row / left column) plus availability flags; outputs are predicted blocks.
+PyTorch twin of media_tpu/ops/intra.py. Inputs are neighbour vectors
+(reconstructed top row / left column) plus availability flags; outputs are
+predicted blocks.
 
 Mode numbering (luma 16x16, spec 8.3.3): 0=V, 1=H, 2=DC, 3=Plane.
 Mode numbering (chroma, spec 8.3.4):     0=DC, 1=H, 2=V, 3=Plane.
+Mode numbering (luma 4x4, spec 8.3.1.2): 0=V, 1=H, 2=DC, 3=DDL, 4=DDR, 5=VR,
+6=HD, 7=VL, 8=HU.
 """
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
 from . import transform as T
@@ -160,6 +166,134 @@ def mode_available_chroma(avail_top, avail_left):
     return torch.stack(
         [torch.ones_like(avail_top), avail_left, avail_top,
          avail_top & avail_left], dim=-1)
+
+
+# --- Luma 4x4 (spec 8.3.1.2): 9 modes ----------------------------------------
+
+I4_V, I4_H, I4_DC, I4_DDL, I4_DDR, I4_VR, I4_HD, I4_VL, I4_HU = range(9)
+
+# Every sample of every mode but DC is (a*s[i] + b*s[j] + c*s[k] + rnd) >> sh
+# over the 13 neighbour samples s = [l3, l2, l1, l0, corner, t0 .. t7]
+# (p[-1, 3] .. p[-1, 0], p[-1, -1], p[0, -1] .. p[7, -1]): index 5 + i is
+# p[i, -1] and index 3 - i is p[-1, i], so that the corner sits where both
+# runs meet and an index of -1 on either side lands on it.
+
+
+def _i4_terms(mode: int, x: int, y: int):
+    """The (sample index, weight) terms, the rounding and the shift of the
+    sample at (x, y) of a directional 4x4 mode (spec 8.3.1.2.1-9)."""
+
+    def t(i):  # p[i, -1]; i == -1 is the corner
+        return 5 + i
+
+    def l(i):  # p[-1, i]; i == -1 is the corner
+        return 3 - i
+
+    def avg2(a, b):
+        return [(a, 1), (b, 1)], 1, 1
+
+    def avg3(a, b, c):
+        return [(a, 1), (b, 2), (c, 1)], 2, 2
+
+    if mode == I4_V:
+        return [(t(x), 1)], 0, 0
+    if mode == I4_H:
+        return [(l(y), 1)], 0, 0
+    if mode == I4_DDL:
+        if x == 3 and y == 3:
+            return [(t(6), 1), (t(7), 3)], 2, 2
+        return avg3(t(x + y), t(x + y + 1), t(x + y + 2))
+    if mode == I4_DDR:
+        if x > y:
+            return avg3(t(x - y - 2), t(x - y - 1), t(x - y))
+        if x < y:
+            return avg3(l(y - x - 2), l(y - x - 1), l(y - x))
+        return avg3(t(0), t(-1), l(0))
+    if mode == I4_VR:
+        z = 2 * x - y
+        if z >= 0 and z % 2 == 0:
+            return avg2(t(x - (y >> 1) - 1), t(x - (y >> 1)))
+        if z >= 0:
+            return avg3(t(x - (y >> 1) - 2), t(x - (y >> 1) - 1),
+                        t(x - (y >> 1)))
+        if z == -1:
+            return avg3(l(0), l(-1), t(0))
+        return avg3(l(y - 2 * x - 1), l(y - 2 * x - 2), l(y - 2 * x - 3))
+    if mode == I4_HD:
+        z = 2 * y - x
+        if z >= 0 and z % 2 == 0:
+            return avg2(l(y - (x >> 1) - 1), l(y - (x >> 1)))
+        if z >= 0:
+            return avg3(l(y - (x >> 1) - 2), l(y - (x >> 1) - 1),
+                        l(y - (x >> 1)))
+        if z == -1:
+            return avg3(l(0), l(-1), t(0))
+        return avg3(t(x - 2 * y - 1), t(x - 2 * y - 2), t(x - 2 * y - 3))
+    if mode == I4_VL:
+        if y % 2 == 0:
+            return avg2(t(x + (y >> 1)), t(x + (y >> 1) + 1))
+        return avg3(t(x + (y >> 1)), t(x + (y >> 1) + 1), t(x + (y >> 1) + 2))
+    if mode == I4_HU:
+        z = x + 2 * y
+        if z > 5:
+            return [(l(3), 1)], 0, 0
+        if z == 5:
+            return [(l(2), 1), (l(3), 3)], 2, 2
+        if z % 2 == 0:
+            return avg2(l(y + (x >> 1)), l(y + (x >> 1) + 1))
+        return avg3(l(y + (x >> 1)), l(y + (x >> 1) + 1), l(y + (x >> 1) + 2))
+    raise ValueError(f"mode {mode}")
+
+
+@functools.lru_cache(maxsize=None)
+def _i4_table(device: torch.device):
+    """(idx (9*16*3,) long, weight (9, 16, 3), rnd (9, 16), sh (9, 16)) of
+    the nine modes' 16 samples in raster order; the DC row is all zero and
+    is filled in by pred_4x4_all."""
+    idx = np.zeros((9, 16, 3), np.int64)
+    wgt = np.zeros((9, 16, 3), np.int32)
+    rnd = np.zeros((9, 16), np.int32)
+    sh = np.zeros((9, 16), np.int32)
+    for mode in range(9):
+        if mode == I4_DC:
+            continue
+        for y in range(4):
+            for x in range(4):
+                terms, r, s = _i4_terms(mode, x, y)
+                for k, (i, w) in enumerate(terms):
+                    idx[mode, 4 * y + x, k] = i
+                    wgt[mode, 4 * y + x, k] = w
+                rnd[mode, 4 * y + x] = r
+                sh[mode, 4 * y + x] = s
+    return (torch.as_tensor(idx.reshape(-1), device=device),
+            torch.as_tensor(wgt, device=device),
+            torch.as_tensor(rnd, device=device),
+            torch.as_tensor(sh, device=device))
+
+
+def pred_4x4_all(top8, left4, corner, avail_top, avail_left, avail_tr):
+    """All nine 4x4 intra modes, batched.
+
+    top8: (N, 8) p[0..7, -1]; the caller has already substituted p[3, -1]
+    into x = 4..7 when the top-right is unavailable (spec 8.3.1.2; avail_tr
+    is accepted for the JAX package's signature and gates nothing here).
+    left4: (N, 4) p[-1, 0..3]; corner: (N,) p[-1, -1]. avail_*: (N,) bool.
+    Returns (preds (N, 9, 4, 4) int32, ok (N, 9) bool).
+    """
+    n = top8.shape[0]
+    idx, wgt, rnd, sh = _i4_table(top8.device)
+    s = torch.cat([left4.flip(1), corner[:, None], top8], dim=1)  # (N, 13)
+    taps = s[:, idx].reshape(n, 9, 16, 3)
+    preds = ((taps * wgt).sum(dim=3, dtype=torch.int32) + rnd) >> sh
+    sum_t = _isum(top8[:, :4], -1)
+    sum_l = _isum(left4, -1)
+    dc = _dc_select((sum_t + sum_l + 4) >> 3, (sum_t + 2) >> 2,
+                    (sum_l + 2) >> 2, avail_top, avail_left)
+    preds[:, I4_DC] = dc[:, None]
+    tl = avail_top & avail_left
+    ok = torch.stack([avail_top, avail_left, torch.ones_like(avail_top),
+                      avail_top, tl, tl, tl, avail_top, avail_left], dim=-1)
+    return preds.reshape(n, 9, 4, 4), ok
 
 
 def sad_cost(pred_modes, original):

@@ -1,14 +1,14 @@
 """Top-level encoder session: I420 frames in, Annex-B H.264 access units out.
 
-PyTorch twin of media_tpu/pipeline/codec.py:EncoderSession for the slice the
-port covers: one slice per picture, I_16x16 IDR + P frames, in-loop
-deblocking; CAVLC or CABAC; constant QP or the CBR rate loop on the device
-(with per-MB QP under adaptive_qp). CBR + CABAC, the operating point of the
-reference, runs the device loop on CAVLC bit counts and transcodes each
-slice to CABAC on the host (native/). The AU bytes equal the JAX package's
-for the same input. The session runs on the GPU unless the caller passes
-device="cpu"; other configurations raise NotImplementedError naming the
-ROADMAP item that ports them.
+PyTorch twin of media_tpu/pipeline/codec.py:EncoderSession, for every
+EncoderConfig that one accepts: IDR (I_16x16, or the per-MB I_4x4 / I_16x16
+decision) + P frames, one or several slices per picture, in-loop deblocking
+across or within slices; CAVLC or CABAC; constant QP or the CBR rate loop on
+the device (with per-MB QP under adaptive_qp); the IBPBP B-GOP; lossless
+I_PCM. CBR + CABAC, the operating point of the reference, runs the device
+loop on CAVLC bit counts and transcodes each slice to CABAC on the host
+(native/). The AU bytes equal the JAX package's for the same input. The
+session runs on the GPU unless the caller passes device="cpu".
 """
 
 from __future__ import annotations
@@ -71,17 +71,6 @@ class EncoderConfig:
 
 
 def _check_supported(cfg: EncoderConfig) -> None:
-    todo = [
-        (cfg.i4x4, "i4x4 (ROADMAP queue 1, item 10)"),
-        (cfg.num_slices != 1, "num_slices > 1, multi-slice CABAC CBR "
-                              "included (ROADMAP queue 1, item 10)"),
-        (bool(cfg.b_frames), "b_frames (ROADMAP queue 1, item 10)"),
-        (cfg.lossless, "lossless (ROADMAP queue 1, item 10)"),
-    ]
-    for bad, what in todo:
-        if bad:
-            raise NotImplementedError(f"media_tpu_torch does not port {what} "
-                                      "yet")
     if cfg.entropy_mode not in ("auto", "device", "host"):
         raise ValueError(f"entropy_mode {cfg.entropy_mode!r}")
     if cfg.rc_mode not in ("cq", "cbr"):
@@ -90,7 +79,9 @@ def _check_supported(cfg: EncoderConfig) -> None:
 
 class EncoderSession:
     """Stateful H.264 encoder on one torch device: IDR + P-frame GOPs at a
-    constant QP or under CBR rate control.
+    constant QP or under CBR rate control, IBPBP GOPs with b_frames=1, or
+    all-I_PCM pictures with lossless (those are assembled on the host and
+    touch no device).
 
     host_coder: "native" (the C++ slice writers and the transcoder of
     native/, the default) or "python" (the Python coders that are their
@@ -108,7 +99,24 @@ class EncoderSession:
         self._native = host_coder == "native"
         self.device = resolve_device(device)
         self.cfg = cfg
-        self.sps = SPS.for_size(cfg.width, cfg.height, level_idc=cfg.level_idc)
+        if cfg.lossless:
+            cfg.deblock = False
+            cfg.cabac = False
+            cfg.rc_mode = "cq"
+        if cfg.b_frames:
+            if cfg.cabac or cfg.rc_mode != "cq" or cfg.num_slices != 1:
+                raise ValueError(
+                    "b_frames requires CAVLC, rc_mode='cq', single slice")
+            # Display order != coding order: POC type 2 is forbidden with
+            # reordering (spec 8.2.1); carry display order as POC type 0.
+            self.sps = SPS.for_size(cfg.width, cfg.height,
+                                    level_idc=cfg.level_idc,
+                                    pic_order_cnt_type=0,
+                                    log2_max_pic_order_cnt_lsb=16,
+                                    max_num_ref_frames=2)
+        else:
+            self.sps = SPS.for_size(cfg.width, cfg.height,
+                                    level_idc=cfg.level_idc)
         if cfg.signal_timing and cfg.framerate > 0:
             self.sps.vui_timing = (1, 2 * cfg.framerate)
         self.pps = PPS(pic_init_qp=cfg.qp, deblocking_filter_control_present=True)
@@ -119,9 +127,21 @@ class EncoderSession:
             self.pps.entropy_coding_mode = 1
         self._pad_w = self.sps.pic_width_in_mbs * 16
         self._pad_h = self.sps.pic_height_in_mbs * 16
+        n_rows = self.sps.pic_height_in_mbs
+        ns = max(1, min(cfg.num_slices, n_rows))
+        bounds = [round(i * n_rows / ns) for i in range(ns + 1)]
+        # (first MB row, end MB row) of each slice
+        self.slice_rows = [(bounds[i], bounds[i + 1]) for i in range(ns)
+                           if bounds[i] < bounds[i + 1]]
+        starts = tuple(r0 for r0, _ in self.slice_rows[1:])
         self._frame_encoder = FrameEncoder(self._pad_w, self._pad_h,
-                                           self.device)
-        self._deblock_idc = 0 if cfg.deblock else 1
+                                           self.device, slice_rows=starts)
+        across = cfg.deblock_across_slices or len(self.slice_rows) == 1
+        if not across:
+            self._frame_encoder.deblock_slice_starts = starts
+        # disable_deblocking_filter_idc: 0 filters every edge, 1 none, 2
+        # none across slice boundaries.
+        self._deblock_idc = (0 if across else 2) if cfg.deblock else 1
         self.frame_idx = 0
         self.frame_idx_of_idr = 0
         self.idr_pic_id = 0
@@ -144,6 +164,11 @@ class EncoderSession:
         self._rc_dev = None   # (qp_f, buf, cplx) 0-d tensors on the device
         self._rc_corr = 0.0   # pending actual-minus-estimated bits
         self._cabac_scale = 0.92
+        # B-GOP state: display index since the IDR and the next reference
+        # picture's frame_num (B pictures are non-reference; their
+        # frame_num is PrevRefFrameNum + 1, spec 7.4.3).
+        self._display_since_idr: int | None = None
+        self._ref_frame_num = 1
         self._rc_init = dict(self.rc_state)
 
     def reset_gop_state(self, idr_pic_id: int = 0) -> None:
@@ -159,6 +184,8 @@ class EncoderSession:
         self._rc_dev = None
         self._rc_corr = 0.0
         self._cabac_scale = 0.92
+        self._display_since_idr = None
+        self._ref_frame_num = 1
 
     def force_keyframe(self) -> None:
         self._force_idr = True
@@ -169,7 +196,8 @@ class EncoderSession:
         counters "frame_idx", "frame_idx_of_idr", "idr_pic_id" and
         "_bits_hwm"; for a CBR session also the rate controller: "rc_state"
         ({"qp", "buf", "cplx"} floats), "_rc_corr", "_cabac_scale" and
-        "_rc_dev" (None, or the three float32 values of the device carry)."""
+        "_rc_dev" (None, or the three float32 values of the device carry);
+        for a B-GOP session also "_display_since_idr" and "_ref_frame_num"."""
         self.recon = tuple(
             torch.tensor(np.asarray(p, dtype=np.uint8), device=self.device)
             for p in state["recon"])
@@ -187,6 +215,10 @@ class EncoderSession:
         rc_dev = state.get("_rc_dev")
         self._rc_dev = None if rc_dev is None else tuple(
             torch.tensor(np.float32(x), device=self.device) for x in rc_dev)
+        if "_display_since_idr" in state:
+            d = state["_display_since_idr"]
+            self._display_since_idr = None if d is None else int(d)
+            self._ref_frame_num = int(state["_ref_frame_num"])
 
     def _device_cap(self) -> int:
         """Per-frame device stream buffer size in words: a power of two at
@@ -224,6 +256,14 @@ class EncoderSession:
     def encode_frame(self, i420) -> bytes:
         """Encode one I420 frame; returns the Annex-B bytes of its AU."""
         y, u, v = self._planes(i420)
+        if self.cfg.lossless:
+            data = self._encode_ipcm(y, u, v)
+            self.frame_idx += 1
+            return data
+        if self.cfg.b_frames:
+            # Single-frame call in B mode: encode as an anchor (no B can be
+            # inserted without lookahead); counters stay consistent.
+            return self._encode_frames_bgop([(y, u, v)])[0]
         is_idr = self._idr_due()
         self._force_idr = False
         if is_idr:
@@ -260,7 +300,8 @@ class EncoderSession:
         """Encode P-frame chunks pre-staged by upload_frames. The bitstream
         equals encode_frames' on the same frames. The session must be
         mid-GOP (a reference exists and no IDR falls inside the run), and
-        its configuration CAVLC at constant QP or CABAC under CBR."""
+        its configuration single-slice, CAVLC at constant QP or CABAC under
+        CBR."""
         cfg = self.cfg
         if self.recon is None:
             raise RuntimeError("encode_frames_staged needs a reference frame "
@@ -270,7 +311,8 @@ class EncoderSession:
         if self._force_idr or n_frames > until_idr:
             raise RuntimeError("IDR due inside a staged run; use encode_frames")
         cbr_cabac = cfg.cabac and cfg.rc_mode == "cbr"
-        if not ((not cfg.cabac and cfg.rc_mode == "cq") or cbr_cabac):
+        if not (len(self.slice_rows) == 1
+                and ((not cfg.cabac and cfg.rc_mode == "cq") or cbr_cabac)):
             raise RuntimeError(
                 "staged path requires single-slice CAVLC-CQ or CABAC-CBR")
         out: list[bytes] = []
@@ -296,7 +338,11 @@ class EncoderSession:
         batching, as in the JAX package). Returns one Annex-B AU per input
         frame."""
         cfg = self.cfg
+        if cfg.lossless:
+            return [self.encode_frame(b) for b in i420_frames]
         planes = [self._planes(buf) for buf in i420_frames]
+        if cfg.b_frames:
+            return self._encode_frames_bgop(planes)
         out: list[bytes] = []
         pending: list = []  # deferred AU builders, in output order
 
@@ -315,6 +361,15 @@ class EncoderSession:
                 continue
             until_idr = cfg.gop_size - (self.frame_idx % cfg.gop_size)
             k = min(len(planes) - i, until_idr)
+            if (cfg.rc_mode == "cbr" and cfg.cabac
+                    and len(self.slice_rows) != 1):
+                # Multi-slice CABAC CBR: the per-frame exact host loop.
+                drain(0)
+                for j in range(k):
+                    out.append(self._encode_p_cbr_cabac(*planes[i + j]))
+                    self.frame_idx += 1
+                i += k
+                continue
             if cfg.rc_mode == "cbr" and cfg.cabac:
                 # CABAC CBR, pipelined: the device loop runs rate control
                 # on its own CAVLC pack's bit counts x the running
@@ -338,8 +393,9 @@ class EncoderSession:
                 continue
             use_device = (cfg.entropy_mode == "device"
                           or (cfg.entropy_mode == "auto"
-                              and self.device.type != "cpu")) and not cfg.cabac
-            # (the device packer is CAVLC)
+                              and self.device.type != "cpu")) and (
+                                  len(self.slice_rows) == 1 and not cfg.cabac)
+            # (the device packer codes one CAVLC slice per frame)
             if not use_device:
                 drain(0)
                 host = self._stack_host(planes[i : i + k])
@@ -488,7 +544,7 @@ class EncoderSession:
         from .decoder_tpu import parse_pslice_symbols
 
         data = np.asarray(stream_words, dtype=np.uint32).byteswap().tobytes()
-        R = self.sps.pic_height_in_mbs
+        R = self.slice_rows[0][1] - self.slice_rows[0][0]
         C = self.sps.pic_width_in_mbs
         payload = native.transcode_pslice_native(
             data, total_bits, 0, R, C, qp,
@@ -528,7 +584,7 @@ class EncoderSession:
             streams, bits, qps, recon, new_state = run(enc.cap_words)
         self._note_bits(int(bits.max()))
         out = []
-        if int(bits.max()) <= enc.cap_words * 32:
+        if len(self.slice_rows) == 1 and int(bits.max()) <= enc.cap_words * 32:
             self.recon = tuple(recon)
             self.rc_state = new_state
             for j in range(k):
@@ -536,7 +592,8 @@ class EncoderSession:
                                                   qp=int(qps[j])))
                 self.frame_idx += 1
         else:
-            # Device bit budget exceeded: host entropy at the mean chosen QP.
+            # Several slices, or the device bit budget exceeded: host entropy
+            # at the mean chosen QP.
             qp = int(np.round(qps.mean()))
             symbols, self.recon = enc.encode_pframes_batch(
                 ys, us, vs, *self.recon, qp, deblock=cfg.deblock)
@@ -614,18 +671,24 @@ class EncoderSession:
         return wrap_nal(H264NalType.SEI, rbsp, nal_ref_idc=0)
 
     def _pslice_header_writer(self, qp: int | None = None,
-                              frame_idx: int | None = None) -> BitWriter:
+                              first_mb: int = 0,
+                              frame_idx: int | None = None,
+                              frame_num: int | None = None,
+                              poc: int | None = None) -> BitWriter:
         qp = self.cfg.qp if qp is None else qp
         if frame_idx is None:
             frame_idx = self.frame_idx
+        if frame_num is None:
+            frame_num = (frame_idx - self.frame_idx_of_idr) % (
+                1 << self.sps.log2_max_frame_num)
         bw = BitWriter()
         hdr = SliceHeader(
             slice_type=5,
             idr=False,
-            frame_num=(frame_idx - self.frame_idx_of_idr) % (
-                1 << self.sps.log2_max_frame_num),
-            pic_order_cnt_lsb=0,
-            first_mb_in_slice=0,
+            frame_num=frame_num,
+            pic_order_cnt_lsb=(poc or 0) % (
+                1 << self.sps.log2_max_pic_order_cnt_lsb),
+            first_mb_in_slice=first_mb,
             slice_qp_delta=qp - self.pps.pic_init_qp,
             disable_deblocking_filter_idc=self._deblock_idc,
             cabac_init_idc=self.cfg.cabac_init_idc,
@@ -635,13 +698,25 @@ class EncoderSession:
 
     def _pslice_au(self, fields: dict, qp: int | None = None,
                    frame_idx: int | None = None) -> bytes:
-        """One P-slice AU from host symbol arrays, at the slice QP `qp`
-        (cfg.qp when None): CABAC or CAVLC, through the C++ writer or, for
+        """One P picture's AU from host symbol arrays, at the slice QP `qp`
+        (cfg.qp when None), one NAL per slice of slice_rows."""
+        au = b""
+        for r0, r1 in self.slice_rows:
+            bw = self._pslice_header_writer(
+                qp, first_mb=r0 * self.sps.pic_width_in_mbs,
+                frame_idx=frame_idx)
+            au += self._pslice_nal(bw, fields, r0, r1, qp)
+        return self._aud(primary_pic_type=1) + au
+
+    def _pslice_nal(self, bw: BitWriter, fields: dict, r0: int, r1: int,
+                    qp: int | None = None) -> bytes:
+        """The slice NAL of MB rows r0..r1 of a P picture, after the header
+        already in `bw`: CABAC or CAVLC, through the C++ writer or, for
         host_coder="python" and where the C++ writer refuses, the Python
-        one."""
-        bw = self._pslice_header_writer(qp, frame_idx=frame_idx)
-        sym = (fields["mv"], fields["luma_levels"], fields["cdc_levels"],
-               fields["cac_levels"])
+        one. The writers see only the slice's rows, so MV and nC prediction
+        restart at its top."""
+        sym = tuple(fields[k][r0:r1] for k in (
+            "mv", "luma_levels", "cdc_levels", "cac_levels"))
         if self.cfg.cabac:
             while not bw.byte_aligned():
                 bw.u(1, 1)  # cabac_alignment_one_bit (7.3.4)
@@ -662,10 +737,158 @@ class EncoderSession:
                     cac_levels=sym[3])
                 bw.rbsp_trailing_bits()
             rbsp = bw.get_bytes()
-        return self._aud(primary_pic_type=1) + wrap_nal(
-            H264NalType.SLICE, rbsp, nal_ref_idc=2)
+        return wrap_nal(H264NalType.SLICE, rbsp, nal_ref_idc=2)
+
+    # ------------------------------------------------------------- B frames
+
+    def _encode_frames_bgop(self, planes: list) -> list[bytes]:
+        """The IBPBP GOP loop: every pair (f[i], f[i+1]) encodes as the anchor
+        P (display i+1) followed by the non-reference B (display i): coding
+        order, which is also the returned AU order. One AU per input
+        frame."""
+        cfg = self.cfg
+        fnmask = (1 << self.sps.log2_max_frame_num) - 1
+        out: list[bytes] = []
+        i = 0
+        n = len(planes)
+        while i < n:
+            idr_due = (self._display_since_idr is None
+                       or self._display_since_idr >= cfg.gop_size
+                       or self._force_idr or self.recon is None)
+            if idr_due:
+                self._force_idr = False
+                out.append(self._encode_idr(*planes[i]))
+                self._display_since_idr = 1
+                self._ref_frame_num = 1
+                self.frame_idx += 1
+                i += 1
+                continue
+            d = self._display_since_idr
+            until_idr = cfg.gop_size - d
+            if i + 1 < n and until_idr >= 2:
+                prev_recon = self.recon
+                p_fn = self._ref_frame_num & fnmask
+                p_au = self._encode_p_anchor(planes[i + 1], frame_num=p_fn,
+                                             poc=2 * (d + 1))
+                b_au = self._encode_b(planes[i], prev_recon, self.recon,
+                                      frame_num=(p_fn + 1) & fnmask,
+                                      poc=2 * d)
+                self._ref_frame_num += 1
+                out.extend([p_au, b_au])
+                self._display_since_idr += 2
+                self.frame_idx += 2
+                i += 2
+            else:
+                out.append(self._encode_p_anchor(
+                    planes[i], frame_num=self._ref_frame_num & fnmask,
+                    poc=2 * d))
+                self._ref_frame_num += 1
+                self._display_since_idr += 1
+                self.frame_idx += 1
+                i += 1
+        return out
+
+    def _encode_p_anchor(self, plane, frame_num: int, poc: int) -> bytes:
+        """One P anchor with explicit frame_num/POC (B-GOP coding order)."""
+        cfg = self.cfg
+        result = self._frame_encoder.encode_pframe(
+            *plane, *self.recon, cfg.qp, deblock=cfg.deblock)
+        self.recon = (result.recon_y, result.recon_u, result.recon_v)
+        fields = {k: getattr(result, k) for k in (
+            "mv", "luma_levels", "cdc_levels", "cac_levels")}
+        bw = self._pslice_header_writer(frame_num=frame_num, poc=poc)
+        return self._aud(primary_pic_type=1) + self._pslice_nal(
+            bw, fields, *self.slice_rows[0])
+
+    def _encode_b(self, plane, ref0, ref1, frame_num: int, poc: int) -> bytes:
+        """One non-reference B picture (B_Bi_16x16): ME against both
+        anchors on the device, host CAVLC B-slice entropy (the Python
+        writer; there is no C++ one). Deblocking is disabled per slice (idc
+        1): a per-slice choice the spec allows, and B recon never feeds
+        prediction."""
+        cfg = self.cfg
+        qp_b = min(cfg.qp + 2, 51)  # standard B-picture QP offset
+        fields = self._frame_encoder.encode_bframe(*plane, ref0, ref1, qp_b)
+        bw = BitWriter()
+        SliceHeader(
+            slice_type=6,  # B (all slices in the picture are B)
+            idr=False,
+            frame_num=frame_num,
+            pic_order_cnt_lsb=poc % (
+                1 << self.sps.log2_max_pic_order_cnt_lsb),
+            slice_qp_delta=qp_b - self.pps.pic_init_qp,
+            disable_deblocking_filter_idc=1,
+            nal_ref_idc=0,
+        ).write(bw, self.sps, self.pps)
+        slice_coder.write_bslice_mbs(bw, **fields)
+        bw.rbsp_trailing_bits()
+        return self._aud(primary_pic_type=2) + wrap_nal(
+            H264NalType.SLICE, bw.get_bytes(), nal_ref_idc=0)
 
     # ------------------------------------------------------------------- IDR
+
+    def _islice_header_writer(self, r0: int, qp_i: int) -> BitWriter:
+        """The header of the IDR slice that starts at MB row r0."""
+        bw = BitWriter()
+        SliceHeader(
+            slice_type=7,  # I (all slices in the picture are I)
+            idr=True,
+            idr_pic_id=self.idr_pic_id,
+            frame_num=0,
+            first_mb_in_slice=r0 * self.sps.pic_width_in_mbs,
+            slice_qp_delta=qp_i - self.pps.pic_init_qp,
+            disable_deblocking_filter_idc=self._deblock_idc,
+        ).write(bw, self.sps, self.pps)
+        return bw
+
+    def _idr_au_prefix(self) -> bytes:
+        """What precedes the slice NALs of an IDR AU: AUD, SPS, PPS, SEI."""
+        sps_w = BitWriter()
+        self.sps.write(sps_w)
+        sps_w.rbsp_trailing_bits()
+        pps_w = BitWriter()
+        self.pps.write(pps_w)
+        pps_w.rbsp_trailing_bits()
+        return (self._aud(primary_pic_type=0)
+                + wrap_nal(H264NalType.SPS, sps_w.get_bytes())
+                + wrap_nal(H264NalType.PPS, pps_w.get_bytes())
+                + self._idr_sei())
+
+    def _encode_ipcm(self, y, u, v) -> bytes:
+        """One all-I_PCM IDR AU: raw 8-bit samples, mathematically lossless
+        (spec 7.3.5 pcm_sample_luma/chroma; mb_type 25 in I slices). Host
+        numpy throughout: no device is touched, and the reference planes
+        are the source planes themselves.
+
+        Every MB is byte-aligned after its type code, so the whole slice
+        body is assembled as one numpy byte layout: a 2-byte prefix per MB
+        (ue(25) = 9 bits '000011010' + 7 pcm_alignment_zero_bits) followed
+        by 256 luma + 64 Cb + 64 Cr samples."""
+        C = self.sps.pic_width_in_mbs
+        R = self.sps.pic_height_in_mbs
+        self.recon = (y, u, v)  # recon == source by construction
+        self.frame_idx_of_idr = self.frame_idx
+
+        def mbs(p, size):
+            return (p.reshape(R, size, C, size).transpose(0, 2, 1, 3)
+                    .reshape(R, C, size * size).astype(np.uint8))
+
+        pre = np.zeros((R, C, 2), np.uint8)
+        pre[..., 0] = 0x0D
+        body = np.concatenate([pre, mbs(y, 16), mbs(u, 8), mbs(v, 8)], axis=2)
+        slice_nals = b""
+        for r0, r1 in self.slice_rows:
+            bw = self._islice_header_writer(r0, self.pps.pic_init_qp)
+            bw.ue(25)  # mb_type I_PCM (first MB; header end is unaligned)
+            while not bw.byte_aligned():
+                bw.u(1, 0)  # pcm_alignment_zero_bit
+            # The first MB's 2-byte prefix is the bits written above.
+            bw.put_bytes(body[r0:r1].tobytes()[2:])
+            bw.rbsp_trailing_bits()
+            slice_nals += wrap_nal(H264NalType.IDR_SLICE, bw.get_bytes(),
+                                   nal_ref_idc=3)
+        self.idr_pic_id = (self.idr_pic_id + 1) & 0xFFFF
+        return self._idr_au_prefix() + slice_nals
 
     def _idr_qp(self) -> int:
         if self.cfg.rc_mode == "cbr":
@@ -679,59 +902,50 @@ class EncoderSession:
         self._rc_dev = None
         self._rc_corr = 0.0
         qp_i = self._idr_qp()
-        result = self._frame_encoder.encode_iframe(y, u, v, qp_i,
-                                                   deblock=self.cfg.deblock)
+        result = self._frame_encoder.encode_iframe(
+            y, u, v, qp_i, deblock=self.cfg.deblock, i4x4=self.cfg.i4x4)
         return self._idr_au_from_result(result, qp_i)
 
     def _idr_au_from_result(self, result, qp_i: int) -> bytes:
-        """Assemble the IDR AU (SPS + PPS + slice NAL) from an IFrameResult."""
+        """Assemble the IDR AU (SPS + PPS + one NAL per slice) from an
+        IFrameResult."""
         cfg = self.cfg
         self.recon = (result.recon_y, result.recon_u, result.recon_v)
         self.frame_idx_of_idr = self.frame_idx
-        bw = BitWriter()
-        SliceHeader(
-            slice_type=7,  # I (all slices in the picture are I)
-            idr=True,
-            idr_pic_id=self.idr_pic_id,
-            frame_num=0,
-            first_mb_in_slice=0,
-            slice_qp_delta=qp_i - self.pps.pic_init_qp,
-            disable_deblocking_filter_idc=self._deblock_idc,
-        ).write(bw, self.sps, self.pps)
-        sym = (result.mode16, result.chroma_mode, result.dc_levels,
-               result.ac_levels, result.cdc_levels, result.cac_levels)
-        if cfg.cabac:
-            while not bw.byte_aligned():
-                bw.u(1, 1)  # cabac_alignment_one_bit
-            payload = (native.cabac_write_islice_native(*sym, qp_i)
-                       if self._native else None)
-            if payload is None:
-                payload = cabac_slice.write_islice_cabac(*sym, qp_i)
-            rbsp = bw.get_bytes() + payload
-        else:
-            if self._native:
-                native.write_islice_native(bw, *sym)
+        slice_nals = b""
+        for r0, r1 in self.slice_rows:
+            bw = self._islice_header_writer(r0, qp_i)
+            sym = tuple(getattr(result, k)[r0:r1] for k in (
+                "mode16", "chroma_mode", "dc_levels", "ac_levels",
+                "cdc_levels", "cac_levels"))
+            i4 = {}
+            if result.is_i4 is not None:
+                i4 = dict(is_i4=result.is_i4[r0:r1],
+                          modes4=result.modes4[r0:r1],
+                          luma4_levels=result.luma4_levels[r0:r1])
+            if cfg.cabac:
+                while not bw.byte_aligned():
+                    bw.u(1, 1)  # cabac_alignment_one_bit
+                payload = (native.cabac_write_islice_native(*sym, qp_i, **i4)
+                           if self._native else None)
+                if payload is None:
+                    payload = cabac_slice.write_islice_cabac(*sym, qp_i, **i4)
+                rbsp = bw.get_bytes() + payload
             else:
-                slice_coder.write_islice_mbs(
-                    bw, mode16=sym[0], chroma_mode=sym[1], dc_levels=sym[2],
-                    ac_levels=sym[3], cdc_levels=sym[4], cac_levels=sym[5])
-                bw.rbsp_trailing_bits()
-            rbsp = bw.get_bytes()
+                # The C++ CAVLC writer codes I_16x16 only.
+                if self._native and not i4:
+                    native.write_islice_native(bw, *sym)
+                else:
+                    slice_coder.write_islice_mbs(
+                        bw, mode16=sym[0], chroma_mode=sym[1],
+                        dc_levels=sym[2], ac_levels=sym[3], cdc_levels=sym[4],
+                        cac_levels=sym[5], **i4)
+                    bw.rbsp_trailing_bits()
+                rbsp = bw.get_bytes()
+            slice_nals += wrap_nal(H264NalType.IDR_SLICE, rbsp, nal_ref_idc=3)
         self.idr_pic_id = (self.idr_pic_id + 1) & 0xFFFF
 
-        sps_w = BitWriter()
-        self.sps.write(sps_w)
-        sps_w.rbsp_trailing_bits()
-        pps_w = BitWriter()
-        self.pps.write(pps_w)
-        pps_w.rbsp_trailing_bits()
-        au = (
-            self._aud(primary_pic_type=0)
-            + wrap_nal(H264NalType.SPS, sps_w.get_bytes())
-            + wrap_nal(H264NalType.PPS, pps_w.get_bytes())
-            + self._idr_sei()
-            + wrap_nal(H264NalType.IDR_SLICE, rbsp, nal_ref_idc=3)
-        )
+        au = self._idr_au_prefix() + slice_nals
         if cfg.rc_mode == "cbr":
             # Charge the I frame against the buffer at an allowance of 4x the
             # per-frame target (typical I/P size ratio at equal quality).

@@ -15,11 +15,11 @@ parsers where those refuse a slice, for multi-slice CAVLC pictures, for
 CAVLC I slices, and throughout with host_parser="python".
 
 Scope: CAVLC and CABAC streams of single- or multi-slice pictures
-(row-aligned slices, assembled per picture), P_Skip / P_L0_16x16 and I_16x16
-macroblocks, per-MB QP in P slices, disable_deblocking_filter_idc 0/1/2,
-|MV| within the supported window. Anything else raises UnsupportedStream;
-for what the JAX package decodes and this port does not yet (I_4x4) the
-message names the ROADMAP item that ports it.
+(row-aligned slices, assembled per picture), P_Skip / P_L0_16x16, I_16x16
+and I_4x4 macroblocks, per-MB QP in P slices,
+disable_deblocking_filter_idc 0/1/2, |MV| within the supported window.
+Anything else (B pictures, POC type 0, I_PCM among it) raises
+UnsupportedStream, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -43,7 +43,7 @@ from ..ops import transform as T
 from ..ops.pad import edge_pad
 from . import mv_pred
 from .deblock_apply import deblock_iframe, deblock_pframe_from_symbols
-from .encoder import ZSCAN_TO_RASTER
+from .encoder import ZSCAN_TO_RASTER, i4_chain, wave_lanes
 from .pframe_core import (
     _TAPS, INTERP_HALO, SYMBOLS_PER_MB, _blocks8_mb, _blocks_mb, _mb_origins,
     _windows, from_mbs, mc_chroma_ext)
@@ -285,16 +285,24 @@ def _recon_pframe_body(R: int, C: int, ref_y, ref_u, ref_v, mv, luma,
 def _recon_iframe_device(R: int, C: int, mode16, chroma_mode, luma_sym,
                          chroma_sym, qp: int, deblock: bool,
                          slice_starts: tuple = (),
-                         deblock_starts: tuple = (), kernel: str = "frame"):
-    """Wavefront I_16x16 reconstruction with given modes and levels (the
-    decode twin of FrameEncoder._encode_iframe_device's loop over the R+C-1
-    waves, valid lanes only).
+                         deblock_starts: tuple = (), kernel: str = "frame",
+                         i4_sym=None):
+    """Wavefront intra reconstruction with given modes and levels (the
+    decode twin of FrameEncoder._encode_iframe_device's loop over the waves,
+    valid lanes only; the JAX package's _recon_iframe_device and
+    _recon_iframe_mixed_device in one).
 
     slice_starts: rows starting a new slice (intra prediction never crosses
     them). deblock_starts: rows the filter must not cross
-    (disable_deblocking_filter_idc == 2; empty when idc == 0)."""
+    (disable_deblocking_filter_idc == 2; empty when idc == 0). i4_sym: None
+    for an I_16x16 picture (R+C-1 waves), else (is_i4 (R, C) bool, modes4
+    (R, C, 16) z-scan, luma4 (R, C, 16, 16) zig-zag per raster block) of a
+    mixed I_16x16 / I_4x4 picture: the skew-2 schedule, and per MB the
+    I_16x16 reconstruction or the 16-step I_4x4 chain with the coded
+    modes."""
     dc_levels, ac_levels = luma_sym
     cdc_levels, cac_levels = chroma_sym
+    skew = 1 if i4_sym is None else 2
     dev = mode16.device
     i32 = torch.int32
     qp_c = int(T.chroma_qp(qp))
@@ -306,18 +314,18 @@ def _recon_iframe_device(R: int, C: int, mode16, chroma_mode, luma_sym,
     recon_u = torch.zeros((R, C, 8, 8), dtype=i32, device=dev)
     recon_v = torch.zeros((R, C, 8, 8), dtype=i32, device=dev)
 
-    for k in range(R + C - 1):
-        r = torch.arange(max(0, k - C + 1), min(R - 1, k) + 1, device=dev)
-        c = k - r
+    for k in range(skew * (R - 1) + C):
+        r, c = wave_lanes(k, R, C, skew, dev)
         lanes = torch.arange(len(r), device=dev)
         avail_top = has_top[r]
         avail_left = c > 0
         rm1 = (r - 1).clamp(min=0)
         cm1 = (c - 1).clamp(min=0)
 
-        preds = intra_ops.pred_16x16_all(
-            recon_y[rm1, c, 15, :], recon_y[r, cm1, :, 15],
-            recon_y[rm1, cm1, 15, 15], avail_top, avail_left)
+        top, left = recon_y[rm1, c, 15, :], recon_y[r, cm1, :, 15]
+        top_left = recon_y[rm1, cm1, 15, 15]
+        preds = intra_ops.pred_16x16_all(top, left, top_left, avail_top,
+                                         avail_left)
         pred = preds[lanes, mode16[r, c].long()]
         # Luma residual: DC Hadamard chain + AC blocks.
         f_dc = T.hadamard_4x4(T.inverse_zigzag(dc_levels[r, c]))
@@ -328,7 +336,23 @@ def _recon_iframe_device(R: int, C: int, mode16, chroma_mode, luma_sym,
             dim=-1))
         d = T.dequant_4x4(z_ac, qp)
         d[:, :, 0, 0] = d_dc.reshape(-1, 16)
-        recon_y[r, c] = (pred + _blocks_mb(T.inverse_4x4(d))).clamp(0, 255)
+        recon = (pred + _blocks_mb(T.inverse_4x4(d))).clamp(0, 255)
+        if i4_sym is not None:
+            is_i4, modes4, luma4 = i4_sym
+            m4 = modes4[r, c].long()  # (N, 16) z-scan
+            lv4 = luma4[r, c]  # (N, 16, 16) zig-zag, raster blocks
+
+            def block_step(z, b, y0, x0, preds4, _ok4):
+                zl = T.inverse_zigzag(lv4[:, b])
+                return (preds4[lanes, m4[:, z]]
+                        + T.inverse_4x4(T.dequant_4x4(zl, qp))).clamp(0, 255)
+
+            cur = i4_chain(
+                top, left, top_left,
+                recon_y[rm1, (c + 1).clamp(max=C - 1), 15, 0:4], avail_top,
+                avail_left, avail_top & (c < C - 1), block_step)
+            recon = torch.where(is_i4[r, c][:, None, None], cur, recon)
+        recon_y[r, c] = recon
 
         cmode = chroma_mode[r, c].long()
         for comp, plane in enumerate((recon_u, recon_v)):
@@ -528,7 +552,7 @@ class TpuDecoder:
         return parse_pslice_symbols(br, n_avail, C, slice_qp=qp, partial=True)
 
     def _parse_islice(self, rbsp: bytes, br, n_avail: int, C: int, qp: int):
-        """The symbol dict of one I slice; an I_4x4 macroblock raises."""
+        """The symbol dict of one I slice, its I_4x4 fields included."""
         if self.pps.entropy_coding_mode:
             pos = br.bit_position
             pos += (8 - pos % 8) % 8  # cabac_alignment_one_bit
@@ -538,16 +562,13 @@ class TpuDecoder:
             if sym is None:
                 sym = cabac_slice.parse_islice_cabac(rbsp, pos, n_avail, C,
                                                      qp)
-            if sym.get("is_i4") is not None and np.asarray(sym["is_i4"]).any():
-                raise UnsupportedStream(
-                    "I_4x4 macroblock: media_tpu_torch does not port I_4x4 "
-                    "reconstruction yet (ROADMAP queue 1, item 10)")
             return sym
         pr = parse_islice_mbs(br, n_avail, C, qp, partial=True)
         return {"mode16": pr.mode16, "chroma_mode": pr.chroma_mode,
                 "dc_levels": pr.dc_levels, "ac_levels": pr.ac_levels,
                 "cdc_levels": pr.cdc_levels, "cac_levels": pr.cac_levels,
-                "covered": pr.covered}
+                "is_i4": pr.is_i4, "modes4": pr.modes4,
+                "luma4_levels": pr.luma4_levels, "covered": pr.covered}
 
     def _decode_slice_body(self, rbsp: bytes, br, hdr, nal_ref_idc: int):
         """Parse one slice into slice-local symbol arrays (neighbor rules
@@ -586,14 +607,16 @@ class TpuDecoder:
                     "per-slice QP change in an I picture")
             sym = self._parse_islice(rbsp, br, n_avail, C, qp)
             keys = ("mode16", "chroma_mode", "dc_levels", "ac_levels",
-                    "cdc_levels", "cac_levels")
+                    "cdc_levels", "cac_levels", "is_i4", "modes4",
+                    "luma4_levels")
         covered = int(sym["covered"])
         if covered % C:
             raise UnsupportedStream("slice ends mid-row")
         rows = covered // C
         if asm.setdefault("fields", None) is None:
-            asm["fields"] = {k: np.zeros((R, C) + sym[k].shape[2:], np.int32)
-                             for k in keys}
+            asm["fields"] = {
+                k: np.zeros((R, C) + sym[k].shape[2:],
+                            bool if k == "is_i4" else np.int32) for k in keys}
         for k in keys:
             asm["fields"][k][r0 : r0 + rows] = sym[k][:rows]
         if hdr.is_p:
@@ -665,10 +688,13 @@ class TpuDecoder:
             args = (up(f["mode16"]), up(f["chroma_mode"]),
                     (up(f["dc_levels"]), up(f["ac_levels"])),
                     (up(f["cdc_levels"]), up(f["cac_levels"])))
+            # A picture without I_4x4 MBs takes the shorter I_16x16 schedule.
+            i4_sym = (up(f["is_i4"]), up(f["modes4"]),
+                      up(f["luma4_levels"])) if f["is_i4"].any() else None
             t1 = self._sync()
             planes = _recon_iframe_device(R, C, *args, qp, deblock,
                                           slice_starts, deblock_starts,
-                                          kernel)
+                                          kernel, i4_sym)
         if self.profile:
             t2 = self._sync()
             self.timings.append({

@@ -1,11 +1,14 @@
-"""Frame encoder core: the I_16x16 intra wavefront and batched P frames.
+"""Frame encoder core: the intra wavefront (I_16x16, and the per-MB
+I_4x4 / I_16x16 decision), batched P frames and bi-predicted B frames.
 
-PyTorch twin of media_tpu/pipeline/encoder.py (the constant-QP, single-slice
-subset). Intra prediction depends on the reconstructed left/top neighbours,
-so the MBs of one anti-diagonal (wave k = r + c) are independent: the IDR
-runs a Python loop over the R+C-1 waves, vectorising each wave's MBs through
-batched prediction, transform and quantisation. P frames have no
-intra-frame dependency before deblocking and run as whole-frame tensor ops.
+PyTorch twin of media_tpu/pipeline/encoder.py. Intra prediction depends on
+the reconstructed left/top neighbours, so the MBs of one anti-diagonal (wave
+k = r + c) are independent: the IDR runs a Python loop over the R+C-1 waves,
+vectorising each wave's MBs through batched prediction, transform and
+quantisation. With I_4x4 the waves are k = 2r + c, so that the MB above and
+to the right is done first, and each wave runs the 16 blocks of its MBs as a
+chain in z-scan order. P and B frames have no intra-frame dependency before
+deblocking and run as whole-frame tensor ops.
 """
 
 from __future__ import annotations
@@ -22,12 +25,87 @@ from ..ops.pad import edge_pad
 from .deblock_apply import deblock_iframe, deblock_pframe_from_symbols
 from .pframe_core import (
     INTERP_HALO, _blocks8_mb, _blocks_mb, _mb_blocks, _mb_blocks8,
-    chroma_qp_device, local_pframe_core, unpack_symbols_device)
+    chroma_qp_device, local_bframe_core, local_pframe_core, unpack_b_symbols,
+    unpack_symbols, unpack_symbols_device)
 
 # z-scan order of 4x4 luma blocks within an MB -> raster index (by*4+bx)
 ZSCAN_TO_RASTER = np.array(
     [0, 1, 4, 5, 2, 3, 6, 7, 8, 9, 12, 13, 10, 11, 14, 15], dtype=np.int32
 )
+
+
+# Whether the 4x4 block above and to the right of raster block (by, bx),
+# by > 0, is decoded before it in z-scan order.
+_TR_OK = {(1, 0): True, (1, 1): False, (1, 2): True, (1, 3): False,
+          (2, 0): True, (2, 1): True, (2, 2): True, (2, 3): False,
+          (3, 0): True, (3, 1): False, (3, 2): True, (3, 3): False}
+
+
+def wave_lanes(k: int, R: int, C: int, skew: int, device):
+    """The (r, c) index tensors of wave k: all MBs with skew*r + c == k, by
+    rising row. skew=1 serves left/top dependencies (I_16x16); skew=2 also
+    puts the top-right MB in an earlier wave, which I_4x4 needs (block
+    (0, 3)'s above-right samples lie in MB (r-1, c+1)). There are
+    skew*(R-1) + C waves."""
+    lo = max(0, -(-(k - (C - 1)) // skew))
+    r = torch.arange(lo, min(R - 1, k // skew) + 1, device=device)
+    return r, k - skew * r
+
+
+def i4_chain(top, left, top_left, tr_row4, avail_top, avail_left, tr_mb_ok,
+             block_step):
+    """The 16-step chain of the I_4x4 blocks of a wave's MBs, in z-scan
+    order, over the canvas `cur` (N, 16, 16) that it returns.
+
+    top, left: (N, 16) bottom row of the MB above and right column of the
+    MB to the left; top_left: (N,); tr_row4: (N, 4) the first four bottom
+    samples of the MB above and to the right; avail_*, tr_mb_ok: (N,) bool.
+    block_step(z, b, y0, x0, preds4, ok4) returns the reconstructed (N, 4, 4)
+    block of z-scan index z (raster block b, origin (y0, x0)) given all nine
+    predictions and their availability.
+
+    `cur` is written in place: every neighbour of step z is read (and copied
+    by pred_4x4_all's concatenation) before the step's write."""
+    n = top.shape[0]
+    dev = top.device
+    cur = torch.zeros((n, 16, 16), dtype=torch.int32, device=dev)
+    yes = torch.ones((n,), dtype=torch.bool, device=dev)
+    no = torch.zeros((n,), dtype=torch.bool, device=dev)
+    for z in range(16):
+        b = int(ZSCAN_TO_RASTER[z])
+        by, bx = b // 4, b % 4
+        x0, y0 = bx * 4, by * 4
+        top4 = top[:, x0 : x0 + 4] if by == 0 else cur[:, y0 - 1, x0 : x0 + 4]
+        left4 = (left[:, y0 : y0 + 4] if bx == 0
+                 else cur[:, y0 : y0 + 4, x0 - 1])
+        if by == 0 and bx == 0:
+            corner = top_left
+        elif by == 0:
+            corner = top[:, x0 - 1]
+        elif bx == 0:
+            corner = left[:, y0 - 1]
+        else:
+            corner = cur[:, y0 - 1, x0 - 1]
+        if by == 0:
+            tr4, tr_ok = ((top[:, x0 + 4 : x0 + 8], avail_top) if bx < 3
+                          else (tr_row4, tr_mb_ok))
+        elif _TR_OK[(by, bx)]:
+            tr4, tr_ok = cur[:, y0 - 1, x0 + 4 : x0 + 8], yes
+        else:
+            tr4, tr_ok = None, no
+        # An unavailable top-right repeats p[3, -1] (spec 8.3.1.2).
+        rep4 = top4[:, 3:4].expand(n, 4)
+        if tr4 is None:
+            tr4 = rep4
+        elif tr_ok is not yes:
+            tr4 = torch.where(tr_ok[:, None], tr4, rep4)
+        preds4, ok4 = intra_ops.pred_4x4_all(
+            torch.cat([top4, tr4], dim=1), left4, corner,
+            yes if by > 0 else avail_top, yes if bx > 0 else avail_left,
+            tr_ok)
+        cur[:, y0 : y0 + 4, x0 : x0 + 4] = block_step(z, b, y0, x0, preds4,
+                                                      ok4)
+    return cur
 
 
 def stream_prefix_words(max_bits: int, cap: int, bucket: int = 8192) -> int:
@@ -50,6 +128,24 @@ class IFrameResult:
     recon_y: torch.Tensor  # (R*16, C*16) uint8
     recon_u: torch.Tensor  # (R*8, C*8) uint8
     recon_v: torch.Tensor  # (R*8, C*8) uint8
+    # I_4x4 fields (with the i4x4 mode decision; None otherwise)
+    is_i4: np.ndarray | None = None  # (R, C) bool
+    modes4: np.ndarray | None = None  # (R, C, 16) 4x4 modes in z-scan order
+    luma4_levels: np.ndarray | None = None  # (R, C, 16, 16) zigzag, raster blk
+
+
+@dataclass
+class PFrameResult:
+    """Per-MB symbol arrays of an inter frame (P_L0_16x16 everywhere), on
+    the host, and its reconstruction on the device."""
+
+    mv: np.ndarray  # (R, C, 2) quarter-pel luma MVs (mvx, mvy)
+    luma_levels: np.ndarray  # (R, C, 16, 16) quantized levels per 4x4, zig-zag
+    cdc_levels: np.ndarray  # (R, C, 2, 4)
+    cac_levels: np.ndarray  # (R, C, 2, 4, 15)
+    recon_y: torch.Tensor  # (H, W) uint8
+    recon_u: torch.Tensor
+    recon_v: torch.Tensor
 
 
 def _plane_tensor(x, device):
@@ -61,7 +157,11 @@ def _plane_tensor(x, device):
 class FrameEncoder:
     """Per-geometry frame encoder on one device."""
 
-    def __init__(self, width: int, height: int, device="cuda"):
+    def __init__(self, width: int, height: int, device="cuda",
+                 slice_rows: tuple = ()):
+        """slice_rows: MB rows starting a new slice (row 0 implicit). Intra
+        prediction treats top neighbours across a slice boundary as
+        unavailable."""
         if width % 16 or height % 16:
             raise ValueError("FrameEncoder operates on MB-padded planes")
         self.device = resolve_device(device)
@@ -69,6 +169,13 @@ class FrameEncoder:
         self.height = height
         self.n_cols = width // 16
         self.n_rows = height // 16
+        has_top = np.ones(self.n_rows, dtype=bool)
+        has_top[0] = False
+        has_top[list(slice_rows)] = False
+        self._row_has_top = torch.as_tensor(has_top, device=self.device)
+        # Interior slice-start rows; non-empty selects slice-local
+        # deblocking (disable_deblocking_filter_idc == 2 semantics).
+        self.deblock_slice_starts: tuple = ()
 
     @property
     def cap_words(self) -> int:
@@ -78,24 +185,30 @@ class FrameEncoder:
 
     # ------------------------------------------------------------------ intra
 
-    def encode_iframe(self, y, u, v, qp: int,
-                      deblock: bool = False) -> IFrameResult:
-        """Encode one I_16x16 intra frame. y: (H, W), u/v: (H/2, W/2) 8-bit
-        planes (numpy or tensors)."""
+    def encode_iframe(self, y, u, v, qp: int, deblock: bool = False,
+                      i4x4: bool = False) -> IFrameResult:
+        """Encode one intra frame. y: (H, W), u/v: (H/2, W/2) 8-bit planes
+        (numpy or tensors).
+
+        i4x4: per-MB decision between I_4x4 (nine directional 4x4 modes,
+        each block predicted from the reconstruction of the ones before it)
+        and I_16x16, on the skew-2 wave schedule."""
         dev = self.device
         out = self._encode_iframe_device(
             _plane_tensor(y, dev).to(torch.int32),
             _plane_tensor(u, dev).to(torch.int32),
             _plane_tensor(v, dev).to(torch.int32),
-            qp, int(T.chroma_qp(qp)), deblock)
-        host = {k: out[k].cpu().numpy() for k in (
-            "mode16", "chroma_mode", "dc_levels", "ac_levels", "cdc_levels",
-            "cac_levels")}
+            qp, int(T.chroma_qp(qp)), deblock, i4x4)
+        keys = ("mode16", "chroma_mode", "dc_levels", "ac_levels",
+                "cdc_levels", "cac_levels")
+        if i4x4:
+            keys += ("is_i4", "modes4", "luma4_levels")
+        host = {k: out[k].cpu().numpy() for k in keys}
         return IFrameResult(**host, recon_y=out["recon_y"],
                             recon_u=out["recon_u"], recon_v=out["recon_v"])
 
     def _encode_iframe_device(self, y, u, v, qp: int, qp_c: int,
-                              deblock: bool = False):
+                              deblock: bool = False, i4x4: bool = False):
         R, C = self.n_rows, self.n_cols
         dev = y.device
         i32 = torch.int32
@@ -113,6 +226,15 @@ class FrameEncoder:
             "cdc_levels": torch.zeros((R, C, 2, 4), dtype=i32, device=dev),
             "cac_levels": torch.zeros((R, C, 2, 4, 15), dtype=i32, device=dev),
         }
+        if i4x4:
+            st["is_i4"] = torch.zeros((R, C), dtype=torch.bool, device=dev)
+            st["modes4"] = torch.zeros((R, C, 16), dtype=i32, device=dev)
+            st["luma4_levels"] = torch.zeros((R, C, 16, 16), dtype=i32,
+                                             device=dev)
+            # Mode-bit overhead of I_4x4 (about 16 x 2.5 bits), scaled by the
+            # quantizer step so that the trade follows the QP.
+            bias = 40 << (qp // 6)
+        skew = 2 if i4x4 else 1
         unavailable = torch.tensor(1 << 30, dtype=i32, device=dev)
 
         def chroma_code(o_c, pred_c):
@@ -127,10 +249,10 @@ class FrameEncoder:
             recon_c = (pred_c + _blocks8_mb(T.inverse_4x4(d_c))).clamp(0, 255)
             return z2.reshape(-1, 4), z_cac, recon_c
 
-        for k in range(R + C - 1):
-            r = torch.arange(max(0, k - C + 1), min(R - 1, k) + 1, device=dev)
-            c = k - r
-            avail_top = r > 0
+        for k in range(skew * (R - 1) + C):
+            r, c = wave_lanes(k, R, C, skew, dev)
+            lanes = torch.arange(len(r), device=dev)
+            avail_top = self._row_has_top[r]
             avail_left = c > 0
             rm1 = (r - 1).clamp(min=0)
             cm1 = (c - 1).clamp(min=0)
@@ -138,14 +260,15 @@ class FrameEncoder:
             # ---- luma: I_16x16 mode decision by SATD, first minimum ----
             ry = st["recon_y"]
             o = orig_y[r, c]  # (N, 16, 16)
-            preds = intra_ops.pred_16x16_all(
-                ry[rm1, c, 15, :], ry[r, cm1, :, 15], ry[rm1, cm1, 15, 15],
-                avail_top, avail_left)
+            top, left = ry[rm1, c, 15, :], ry[r, cm1, :, 15]
+            top_left = ry[rm1, cm1, 15, 15]
+            preds = intra_ops.pred_16x16_all(top, left, top_left, avail_top,
+                                             avail_left)
             cost = torch.where(
                 intra_ops.mode_available_16x16(avail_top, avail_left),
                 intra_ops.satd_cost(preds, o), unavailable)
             mode = torch.argmin(cost, dim=-1)
-            pred = preds[torch.arange(len(r), device=dev), mode]
+            pred = preds[lanes, mode]
 
             w = T.forward_4x4(_mb_blocks(o - pred))  # (N, 16, 4, 4)
             z_dc = T.quant_dc_4x4(T.hadamard_4x4(w[:, :, 0, 0].reshape(-1, 4, 4)),
@@ -156,6 +279,43 @@ class FrameEncoder:
             d = T.dequant_4x4(z_ac, qp)
             d[:, :, 0, 0] = d_dc.reshape(-1, 16)
             recon = (pred + _blocks_mb(T.inverse_4x4(d))).clamp(0, 255)
+
+            if i4x4:
+                # ---- the I_4x4 candidate: per block the SATD-best of the
+                # nine modes (first minimum), coded and reconstructed ----
+                modes4 = [None] * 16  # z-scan order
+                lev4 = [None] * 16  # raster block order
+                costs4 = []
+
+                def block_step(z, b, y0, x0, preds4, ok4):
+                    ob = o[:, y0 : y0 + 4, x0 : x0 + 4]
+                    c4 = torch.where(ok4, intra_ops.satd_cost(preds4, ob),
+                                     unavailable)
+                    m4 = torch.argmin(c4, dim=-1)
+                    p4 = preds4[lanes, m4]
+                    zl = T.quant_4x4(T.forward_4x4(ob - p4), qp, intra=True)
+                    modes4[z] = m4.to(i32)
+                    lev4[b] = zl
+                    costs4.append(torch.gather(c4, 1, m4[:, None])[:, 0])
+                    return (p4 + T.inverse_4x4(T.dequant_4x4(zl, qp))).clamp(
+                        0, 255)
+
+                # The top-right MB's column is clamped: the last column has
+                # no MB to its right, and tr_mb_ok says so.
+                cur = i4_chain(
+                    top, left, top_left,
+                    ry[rm1, (c + 1).clamp(max=C - 1), 15, 0:4], avail_top,
+                    avail_left, avail_top & (c < C - 1), block_step)
+                cost4 = torch.stack(costs4).sum(dim=0, dtype=i32)
+                i4_sel = cost4 + bias < cost.min(dim=-1).values
+                recon = torch.where(i4_sel[:, None, None], cur, recon)
+                # The side that lost carries no levels; mode16 stays.
+                z_dc = z_dc.masked_fill(i4_sel[:, None, None], 0)
+                z_ac = z_ac.masked_fill(i4_sel[:, None, None, None], 0)
+                lev4 = T.zigzag(torch.stack(lev4, dim=1)).masked_fill(
+                    ~i4_sel[:, None, None], 0)
+                modes4 = torch.stack(modes4, dim=1).masked_fill(
+                    ~i4_sel[:, None], 0)
 
             # ---- chroma: joint U+V mode decision by SAD ----
             ru_, rv_ = st["recon_u"], st["recon_v"]
@@ -171,7 +331,6 @@ class FrameEncoder:
                 intra_ops.sad_cost(preds_u, ou) + intra_ops.sad_cost(preds_v, ov),
                 unavailable)
             cmode = torch.argmin(ccost, dim=-1)
-            lanes = torch.arange(len(r), device=dev)
             zdc_u, zac_u, recon_u = chroma_code(ou, preds_u[lanes, cmode])
             zdc_v, zac_v, recon_v = chroma_code(ov, preds_v[lanes, cmode])
 
@@ -185,6 +344,10 @@ class FrameEncoder:
             st["cdc_levels"][r, c] = torch.stack([zdc_u, zdc_v], dim=1)
             st["cac_levels"][r, c] = torch.stack(
                 [T.zigzag(zac_u)[..., 1:], T.zigzag(zac_v)[..., 1:]], dim=1)
+            if i4x4:
+                st["is_i4"][r, c] = i4_sel
+                st["modes4"][r, c] = modes4
+                st["luma4_levels"][r, c] = lev4
 
         ry = st["recon_y"].transpose(1, 2).reshape(self.height, self.width)
         ru = st["recon_u"].transpose(1, 2).reshape(self.height // 2,
@@ -192,7 +355,8 @@ class FrameEncoder:
         rv = st["recon_v"].transpose(1, 2).reshape(self.height // 2,
                                                    self.width // 2)
         if deblock:
-            ry, ru, rv = deblock_iframe(ry, ru, rv, qp, qp_c, R, C)
+            ry, ru, rv = deblock_iframe(ry, ru, rv, qp, qp_c, R, C,
+                                        self.deblock_slice_starts)
         else:
             ry, ru, rv = (x.to(torch.uint8) for x in (ry, ru, rv))
         st["recon_y"], st["recon_u"], st["recon_v"] = ry, ru, rv
@@ -203,15 +367,9 @@ class FrameEncoder:
     def _pframe_core(self, ref, frame, qp, qp_c, rs: int):
         """local_pframe_core of one P frame against the uint8 reference
         planes `ref`, before deblocking."""
-        halo_y = rs + INTERP_HALO
-        halo_c = rs // 2 + 2
-        ry, ru, rv = (p.to(torch.int32) for p in ref)
         y, u, v = (p.to(torch.int32) for p in frame)
-        return local_pframe_core(
-            y, u, v, edge_pad(ry, halo_y, halo_y, 0, 0),
-            edge_pad(ru, halo_c, halo_c, 0, 0),
-            edge_pad(rv, halo_c, halo_c, 0, 0),
-            qp, qp_c, rs, self.n_rows, self.n_cols)
+        return local_pframe_core(y, u, v, *self._ref_ext(ref, rs), qp, qp_c,
+                                 rs, self.n_rows, self.n_cols)
 
     def _pframe_step(self, ref, frame, qp: int, qp_c: int, rs: int,
                      deblock: bool):
@@ -221,8 +379,53 @@ class FrameEncoder:
         recon = (out["recon_y"], out["recon_u"], out["recon_v"])
         if deblock:
             recon = deblock_pframe_from_symbols(
-                *recon, out["symbols"], qp, qp_c, self.n_rows, self.n_cols)
+                *recon, out["symbols"], qp, qp_c, self.n_rows, self.n_cols,
+                self.deblock_slice_starts)
         return out["symbols"], recon
+
+    def encode_pframe(self, y, u, v, ref_y, ref_u, ref_v, qp: int,
+                      search_range: int = 8,
+                      deblock: bool = False) -> PFrameResult:
+        """Encode one P frame against a reconstructed reference: the symbol
+        arrays on the host, the recon planes on the device."""
+        y, u, v, *ref = self._to_device(y, u, v, ref_y, ref_u, ref_v)
+        symbols, recon = self._pframe_step(
+            ref, (y, u, v), qp, int(T.chroma_qp(qp)), search_range, deblock)
+        return PFrameResult(**unpack_symbols(symbols), recon_y=recon[0],
+                            recon_u=recon[1], recon_v=recon[2])
+
+    # --------------------------------------------------------------------- B
+
+    def encode_bframe(self, y, u, v, ref0, ref1, qp: int,
+                      search_range: int = 8) -> dict:
+        """Encode one non-reference B frame against two references
+        (B_Bi_16x16 everywhere; pframe_core.local_bframe_core).
+
+        ref0/ref1: (y, u, v) plane triples (device or host). Returns the
+        unpacked symbol dict {mv0, mv1, luma_levels, cdc_levels,
+        cac_levels} for the host B-slice entropy coder."""
+        return unpack_b_symbols(self._encode_bframe_device(
+            *self._to_device(y, u, v, *ref0, *ref1), qp,
+            int(T.chroma_qp(qp)), search_range))
+
+    def _ref_ext(self, ref, rs: int):
+        """A reference's planes as int32, extended above and below by the
+        halos the inter cores read."""
+        halo_y = rs + INTERP_HALO
+        halo_c = rs // 2 + 2
+        ry, ru, rv = (p.to(torch.int32) for p in ref)
+        return (edge_pad(ry, halo_y, halo_y, 0, 0),
+                edge_pad(ru, halo_c, halo_c, 0, 0),
+                edge_pad(rv, halo_c, halo_c, 0, 0))
+
+    def _encode_bframe_device(self, y, u, v, r0y, r0u, r0v, r1y, r1u, r1v,
+                              qp: int, qp_c: int, search_range: int):
+        rs = search_range
+        return local_bframe_core(
+            y.to(torch.int32), u.to(torch.int32), v.to(torch.int32),
+            self._ref_ext((r0y, r0u, r0v), rs),
+            self._ref_ext((r1y, r1u, r1v), rs), qp, qp_c, rs, self.n_rows,
+            self.n_cols)
 
     def _encode_pbatch_packed_device(self, ys, us, vs, ref_y, ref_u, ref_v,
                                      qp: int, qp_c: int, search_range: int,
@@ -415,7 +618,8 @@ class FrameEncoder:
                     eff_map = _last_coded(qp_map, coded.reshape(-1),
                                           qp).reshape(R, C)
                 recon = deblock_pframe_from_symbols(
-                    *recon, out["symbols"], qp, qp_c, R, C, qp_map=eff_map)
+                    *recon, out["symbols"], qp, qp_c, R, C,
+                    self.deblock_slice_starts, qp_map=eff_map)
             bits_f = bits.to(f32)
             if bits_scale is not None:
                 # Estimated emitted size when the entropy stage differs from

@@ -1,8 +1,10 @@
-"""P-frame compute core: ME + MC + transform/quant + reconstruction.
+"""P- and B-frame compute cores: ME + MC + transform/quant (+ the P
+frame's reconstruction).
 
-PyTorch twin of media_tpu/pipeline/pframe_core.py (the single-device P path).
-Outputs one int16 symbol tensor per frame and uint8 recon planes that stay
-on the device as the next frame's reference.
+PyTorch twin of media_tpu/pipeline/pframe_core.py (the single-device paths).
+The P core outputs one int16 symbol tensor per frame and uint8 recon planes
+that stay on the device as the next frame's reference; the B core outputs
+symbols only (mv0, mv1, then the P layout's levels: B_SYMBOLS_PER_MB).
 
 Symbol layout per MB (int16, SYMBOLS_PER_MB total):
   [ mvx, mvy,
@@ -208,13 +210,40 @@ def refine_subpel(cur, plane_g, plane_b, plane_h, plane_j, mv_full, R, C,
             best_cost)
 
 
-def _chroma_code(o_c, pred_c, qp_c):
+def search_refine_luma(cur, ref_y_ext, search_range: int, R: int, C: int):
+    """Full-pel search + quarter-pel refinement against one reference.
+
+    cur: (N, 16, 16) int32 MBs; ref_y_ext: reference luma extended by
+    search_range + INTERP_HALO rows above and below. Returns (qmv (N, 2)
+    quarter-pel, pred (N, 16, 16), cost (N,))."""
+    rs = search_range
+    # Full-pel search uses exactly `rs` halo; the extra INTERP_HALO rows are
+    # for sub-pel interpolation reach.
+    pad = edge_pad(ref_y_ext[INTERP_HALO:-INTERP_HALO], 0, 0, rs, rs)
+    span = 16 + 2 * rs
+    windows = pad.unfold(0, span, 16).unfold(1, span, 16).reshape(
+        R * C, span, span)
+    mv_full, _cost = me_ops.full_search(cur, windows, rs)
+
+    pad_i = edge_pad(ref_y_ext, 0, 0, rs + INTERP_HALO, rs + INTERP_HALO)
+    hp_b, hp_h, hp_j = interp_ops.half_pel_planes(pad_i)
+    return refine_subpel(cur, pad_i, hp_b, hp_h, hp_j, mv_full, R, C, rs)
+
+
+def _chroma_levels(o_c, pred_c, qp_c):
+    """Chroma residual of one component against its prediction, quantized:
+    (transform coefficients, DC levels (N, 2, 2), AC levels (N, 4, 4, 4))."""
     w_c = T.forward_4x4(_mb_blocks8(o_c - pred_c))
     dc2 = w_c[:, :, 0, 0].reshape(-1, 2, 2)
     z2 = T.quant_dc_2x2(T.hadamard_2x2(dc2), qp_c, intra=False)
-    d2 = T.dequant_dc_2x2(T.hadamard_2x2(z2), qp_c)
     z_cac = T.quant_4x4(w_c, qp_c, intra=False)
     z_cac[:, :, 0, 0] = 0
+    return z2, z_cac
+
+
+def _chroma_code(o_c, pred_c, qp_c):
+    z2, z_cac = _chroma_levels(o_c, pred_c, qp_c)
+    d2 = T.dequant_dc_2x2(T.hadamard_2x2(z2), qp_c)
     d_c = T.dequant_4x4(z_cac, qp_c)
     d_c[:, :, 0, 0] = d2.reshape(-1, 4)
     recon_c = (pred_c + _blocks8_mb(T.inverse_4x4(d_c))).clamp(0, 255)
@@ -241,17 +270,7 @@ def local_pframe_core(cur_y, cur_u, cur_v, ref_y_ext, ref_u_ext, ref_v_ext,
     cu = to_mbs(cur_u, R, C, 8).to(torch.int32)
     cv = to_mbs(cur_v, R, C, 8).to(torch.int32)
 
-    # Full-pel search uses exactly `rs` halo; the extra INTERP_HALO rows are
-    # for sub-pel interpolation reach.
-    pad = edge_pad(ref_y_ext[INTERP_HALO:-INTERP_HALO], 0, 0, rs, rs)
-    span = 16 + 2 * rs
-    windows = pad.unfold(0, span, 16).unfold(1, span, 16).reshape(n, span, span)
-    mv_full, _cost = me_ops.full_search(cur, windows, rs)
-
-    pad_i = edge_pad(ref_y_ext, 0, 0, rs + INTERP_HALO, rs + INTERP_HALO)
-    hp_b, hp_h, hp_j = interp_ops.half_pel_planes(pad_i)
-    qmv, pred, cost = refine_subpel(cur, pad_i, hp_b, hp_h, hp_j, mv_full,
-                                    R, C, rs)
+    qmv, pred, cost = search_refine_luma(cur, ref_y_ext, rs, R, C)
 
     pred_u = mc_chroma_ext(ref_u_ext, qmv, R, C, halo_c)
     pred_v = mc_chroma_ext(ref_v_ext, qmv, R, C, halo_c)
@@ -277,4 +296,63 @@ def local_pframe_core(cur_y, cur_u, cur_v, ref_y_ext, ref_u_ext, ref_v_ext,
         "recon_u": from_mbs(rec_u, R, C, 8).to(torch.uint8),
         "recon_v": from_mbs(rec_v, R, C, 8).to(torch.uint8),
         "sad_total": cost.sum(dtype=torch.int32),
+    }
+
+
+B_SYMBOLS_PER_MB = 4 + 256 + 8 + 120  # = 388: mv0, mv1, luma, cdc, cac
+
+
+def local_bframe_core(cur_y, cur_u, cur_v, ref0_ext, ref1_ext, qp, qp_c,
+                      search_range: int, n_rows: int, n_cols: int):
+    """B-frame encode core (B_Bi_16x16 everywhere): independent ME against
+    both references, default bi-prediction (spec 8.4.2.3.2: the rounded
+    average of the two prediction signals), transform/quant of the bi
+    residual.
+
+    ref0_ext/ref1_ext: (y_ext, u_ext, v_ext) triples padded like the P
+    core's references. Returns the (R, C, B_SYMBOLS_PER_MB) int16 symbols;
+    no reconstruction: B frames are non-reference in this GOP structure, so
+    their recon never feeds prediction."""
+    R, C = n_rows, n_cols
+    n = R * C
+    rs = search_range
+    halo_c = rs // 2 + 2
+    cur = to_mbs(cur_y, R, C, 16).to(torch.int32)
+    cu = to_mbs(cur_u, R, C, 8).to(torch.int32)
+    cv = to_mbs(cur_v, R, C, 8).to(torch.int32)
+
+    qmv0, pred0, _ = search_refine_luma(cur, ref0_ext[0], rs, R, C)
+    qmv1, pred1, _ = search_refine_luma(cur, ref1_ext[0], rs, R, C)
+    pred = (pred0 + pred1 + 1) >> 1
+    pu = (mc_chroma_ext(ref0_ext[1], qmv0, R, C, halo_c)
+          + mc_chroma_ext(ref1_ext[1], qmv1, R, C, halo_c) + 1) >> 1
+    pv = (mc_chroma_ext(ref0_ext[2], qmv0, R, C, halo_c)
+          + mc_chroma_ext(ref1_ext[2], qmv1, R, C, halo_c) + 1) >> 1
+
+    z = T.quant_4x4(T.forward_4x4(_mb_blocks(cur - pred)), qp, intra=False)
+    zdc_u, zac_u = _chroma_levels(cu, pu, qp_c)
+    zdc_v, zac_v = _chroma_levels(cv, pv, qp_c)
+    return torch.cat(
+        [
+            qmv0,
+            qmv1,
+            T.zigzag(z).reshape(n, 256),
+            torch.stack([zdc_u, zdc_v], dim=1).reshape(n, 8),
+            torch.stack([T.zigzag(zac_u)[..., 1:], T.zigzag(zac_v)[..., 1:]],
+                        dim=1).reshape(n, 120),
+        ],
+        dim=-1,
+    ).to(torch.int16).reshape(R, C, B_SYMBOLS_PER_MB)
+
+
+def unpack_b_symbols(symbols):
+    """(R, C, B_SYMBOLS_PER_MB) int16 -> dict of int32 numpy arrays."""
+    s = np.asarray(symbols.cpu() if torch.is_tensor(symbols) else symbols)
+    R, C = s.shape[:2]
+    return {
+        "mv0": s[..., 0:2].astype(np.int32),
+        "mv1": s[..., 2:4].astype(np.int32),
+        "luma_levels": s[..., 4:260].reshape(R, C, 16, 16).astype(np.int32),
+        "cdc_levels": s[..., 260:268].reshape(R, C, 2, 4).astype(np.int32),
+        "cac_levels": s[..., 268:].reshape(R, C, 2, 4, 15).astype(np.int32),
     }

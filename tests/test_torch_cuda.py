@@ -226,3 +226,102 @@ def test_cbr_cabac_session_and_decode_on_cuda_match_cpu(cuda_device, adaptive):
     for got, want in zip((decoded[0][-1].y, decoded[0][-1].u,
                           decoded[0][-1].v), recon[0]):
         np.testing.assert_array_equal(got, want.numpy())
+
+
+def _structured(w, h, n):
+    """Directional edges around a flat rectangle: I_4x4 and I_16x16 MBs."""
+    rng = np.random.default_rng(1)
+    yy, xx = np.mgrid[0:h, 0:w]
+    out = []
+    for t in range(n):
+        x = xx + 2 * t
+        y = (128 + 60 * np.sin(x / 3.0) * (yy % 17 < 9)
+             + 50 * ((x + 2 * yy) % 23 < 7)).clip(0, 255).astype(np.uint8)
+        y += rng.integers(0, 6, (h, w)).astype(np.uint8)
+        y[16:32, 16:48] = 100
+        out.append(yuv.pack_i420(y, np.full((h // 2, w // 2), 90, np.uint8),
+                                 np.full((h // 2, w // 2), 150, np.uint8)))
+    return out
+
+
+NEW_CONFIGS = {
+    "i4x4-cavlc": dict(i4x4=True),
+    "i4x4-cabac": dict(i4x4=True, cabac=True),
+    "i4x4-cbr-cabac": dict(i4x4=True, cabac=True, cabac_init_idc=1,
+                           rc_mode="cbr", bitrate=150_000, framerate=30),
+    "3slices-idc0": dict(num_slices=3),
+    "3slices-idc2": dict(num_slices=3, deblock_across_slices=False),
+    "2slices-i4x4-cabac-idc2": dict(num_slices=2, i4x4=True, cabac=True,
+                                    deblock_across_slices=False),
+    "2slices-cabac-cbr": dict(num_slices=2, cabac=True, rc_mode="cbr",
+                              bitrate=150_000, framerate=30),
+}
+
+
+@pytest.mark.parametrize("name", list(NEW_CONFIGS))
+def test_new_configs_encode_and_decode_on_cuda_match_cpu(cuda_device, name):
+    """I_4x4 and multi-slice sessions (both idc values) on the card against
+    the CPU (which the CPU tests hold to the JAX package): same AUs, same
+    recon; their streams decoded on the card through both deblock routes
+    against the CPU's planes and the encoder's recon."""
+    frames = _structured(64, 48, 4)
+    out, recon, n_i4 = [], [], []
+    for device in (cuda_device, "cpu"):
+        s = EncoderSession(EncoderConfig(width=64, height=48, qp=28,
+                                         gop_size=30, **NEW_CONFIGS[name]),
+                           device=device)
+        s.PIPELINE_CHUNK = 2
+        inner = s._frame_encoder.encode_iframe
+
+        def tapped(*a, _inner=inner, **kw):
+            res = _inner(*a, **kw)
+            n_i4.append(0 if res.is_i4 is None else int(res.is_i4.sum()))
+            return res
+
+        s._frame_encoder.encode_iframe = tapped
+        out.append([s.encode_frame(frames[0])] + s.encode_frames(frames[1:]))
+        recon.append([p.cpu() for p in s.recon])
+    assert out[0] == out[1]
+    assert n_i4[0] == n_i4[1] and (n_i4[0] > 0) == ("i4x4" in name)
+    for a, b in zip(*recon):
+        assert torch.equal(a, b)
+    for kernel in ("frame", "wave"):
+        decoded = []
+        for device in (cuda_device, "cpu"):
+            dec = TpuDecoder(device=device, deblock_kernel=kernel)
+            decoded.append([f for au in out[0] for f in dec.decode_annexb(au)])
+        assert len(decoded[0]) == len(decoded[1]) == 4
+        for a, b in zip(*decoded):
+            for p in "yuv":
+                np.testing.assert_array_equal(getattr(a, p), getattr(b, p))
+        last = decoded[0][-1]
+        for got, want in zip((last.y, last.u, last.v), recon[0]):
+            np.testing.assert_array_equal(got, want.numpy())
+
+
+@pytest.mark.parametrize("n", [5, 6])
+def test_bgop_on_cuda_matches_cpu(cuda_device, n):
+    frames = _clip(64, 48, n)
+    out = []
+    for device in (cuda_device, "cpu"):
+        s = EncoderSession(EncoderConfig(width=64, height=48, qp=28,
+                                         gop_size=4, b_frames=1),
+                           device=device)
+        out.append(s.encode_frames(frames))
+    assert out[0] == out[1] and len(out[0]) == n
+
+
+def test_lossless_touches_no_device(cuda_device):
+    """Constructing the session places its frame encoder's tables on the
+    device like any session; encoding lossless frames allocates nothing
+    there."""
+    frames = _clip(64, 48, 2)
+    s = EncoderSession(EncoderConfig(width=64, height=48, lossless=True,
+                                     num_slices=2), device=cuda_device)
+    before = torch.cuda.memory_allocated(cuda_device)
+    aus = s.encode_frames(frames)
+    cpu = EncoderSession(EncoderConfig(width=64, height=48, lossless=True,
+                                       num_slices=2), device="cpu")
+    assert aus == cpu.encode_frames(frames)
+    assert all(isinstance(p, np.ndarray) for p in s.recon)
+    assert torch.cuda.memory_allocated(cuda_device) == before

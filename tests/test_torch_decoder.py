@@ -182,10 +182,8 @@ def test_parser_copies_match_originals(partial):
                 jsc.parse_islice_mbs(readers[0], R, C, qp, partial))
             got = dataclasses.asdict(
                 tsc.parse_islice_mbs(readers[1], R, C, qp, partial))
-            # The port has no I_4x4 fields.
-            assert not want.pop("is_i4").any()
-            assert not want.pop("modes4").any()
-            assert not want.pop("luma4_levels").any()
+            # An I_16x16 stream: the I_4x4 fields are there and empty.
+            assert not got["is_i4"].any() and not got["luma4_levels"].any()
         for k in want:
             np.testing.assert_array_equal(want[k], got[k], err_msg=k)
         assert got["covered"] == R * C
@@ -264,26 +262,30 @@ def test_load_state_continues_a_jax_decode(as_bytes, monkeypatch):
 
 
 def test_cabac_and_i4x4_streams_raise_naming_the_roadmap():
-    """I_4x4 macroblocks, CAVLC or CABAC, still raise and name their ROADMAP
-    item; a CABAC stream of I_16x16 macroblocks no longer raises: it decodes
-    to the JAX session's recon."""
+    """Nothing raises any more (the name is the test's old one): a CABAC
+    stream of I_16x16 macroblocks and I_4x4 streams, CAVLC and CABAC, from
+    the JAX session decode to the JAX session's recon, and the I_4x4 streams
+    do hold I_4x4 macroblocks."""
     frames = clip(48, 32, 1)
-    for kw, match in ((dict(cabac=True), None),
-                      (dict(cabac=True, i4x4=True), "item 10"),
-                      (dict(i4x4=True), "item 10")):
+    for kw in (dict(cabac=True), dict(cabac=True, i4x4=True),
+               dict(i4x4=True)):
         sess = jcodec.EncoderSession(jcodec.EncoderConfig(
             width=48, height=32, qp=28, gop_size=30, deblock=False,
             entropy_mode="host", **kw))
         au = sess.encode_frame(frames[0])
-        dec = tdec.TpuDecoder(device="cpu")
-        if match is None:
-            (frame,) = dec.decode_annexb(au)
-            for got, want in zip((frame.y, frame.u, frame.v), sess.recon):
-                np.testing.assert_array_equal(got, np.asarray(want))
-            continue
-        with pytest.raises(tdec.UnsupportedStream, match=match):
-            dec.decode_annexb(au)
-        assert dec._asm is None and dec.frames == []
+        dec = tdec.TpuDecoder(device="cpu", host_parser="python")
+        (frame,) = dec.decode_annexb(au)
+        for got, want in zip((frame.y, frame.u, frame.v), sess.recon):
+            np.testing.assert_array_equal(got, np.asarray(want))
+        (again,) = tdec.TpuDecoder(device="cpu").decode_annexb(au)
+        np.testing.assert_array_equal(again.y, frame.y)
+        rbsp, nal_type, ref_idc, sps, pps = next(iter(_slices([au])))
+        br = BitReader(rbsp)
+        hdr = tsyn.SliceHeader.parse(br, sps, pps, nal_type=nal_type,
+                                     nal_ref_idc=ref_idc)
+        if not kw.get("cabac"):
+            parsed = tsc.parse_islice_mbs(br, 2, 3, 28 + hdr.slice_qp_delta)
+            assert parsed.is_i4.any() == bool(kw.get("i4x4"))
 
 
 def test_truncated_and_garbage_input_give_clean_errors():
