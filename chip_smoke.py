@@ -71,8 +71,28 @@ Phases, one line each; nothing is caught, any failure exits non-zero:
      deblocked); ms per anchor and per B picture; TpuDecoder refuses the
      stream as the JAX one does;
  12. lossless (all I_PCM): one frame, assembled on the host; the samples
-     read back out of the AU equal the input.
-Phases 9 to 12 hold every AU and decoded picture to the golden as well.
+     read back out of the AU equal the input;
+ 13. the public API at full width: create_video_encoder(device="cuda")
+     at the shipped property defaults (720x1280 baseline: CAVLC, CBR
+     5 Mbit/s, I_4x4; a forced IDR at frame 5) and at 1080p on main (CABAC,
+     CBR 8 Mbit/s; a parameter adjust to 6 Mbit/s, so a reset, at frame 6),
+     8 frames each through encode_one_frame; every code SUCCESS, AUs and
+     the encoder's QP after each frame against the golden; the stream back
+     through create_video_decoder(device="cuda") in 65536-byte pieces and
+     the end-of-stream marker, drained until EOS: every payload the
+     golden's, no fallback to the oracle, no warning or error in the media
+     log; ms of both IDRs, P fps, API decode fps, encoder statistics;
+ 14. the port's scalar oracle (ref/decoder.py) on five 176x144 streams
+     encoded on the card (IDR + 4 P, the same with I_4x4, four slices with
+     idc 2, the B-GOP, lossless): AUs and pictures the golden's, pictures
+     the encoder's recon; the B-GOP and lossless streams through
+     VideoDecoder(device="cuda"): one hand-over to the oracle each, every
+     payload the oracle's picture; and one hand-over in mid-stream, with the
+     device decoder's reference planes;
+ 15. the format-2 (HEVC) slot through both factories at 320x240 under CBR:
+     AUs and payloads the golden's.
+Phases 9 to 15 hold every AU and decoded picture to the golden as well.
+Phase 3 also runs route wave in two threads, 20 pictures each.
 The second-to-last line is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -183,6 +203,32 @@ TOOL_RUNS = {
 # The runs whose stream the device decoder takes (B and I_PCM streams are
 # outside it in both packages).
 TOOL_RUNS_DECODED = ("slices4_cavlc", "slices4_cabac_cbr")
+
+# The public API (phases 13 and 15), each run as (properties set on a fresh
+# ParamStore, by the name of their key in core/params.py; frames; for a
+# frame index the properties set just before that frame; the clip's
+# geometry). Keys and values are those of both packages' params modules.
+API_FRAMES = 8
+API_FEED = 65536  # bytes per send_stream_data call
+API_RUNS = {
+    # The reference's shipped property defaults (core/params.py:47-58):
+    # 720x1280 portrait, 30 fps, 5 Mbit/s, GOP 30, baseline, so CAVLC under
+    # CBR with I_4x4; frame 5 a forced IDR.
+    "api_default": ({}, API_FRAMES, {5: {"KEY_FORCE_KEYFRAME": "1"}},
+                    (720, 1280)),
+    # The policy at api/encoder_api.py:142-154 on main: CABAC; before frame
+    # 6 a new bitrate through the parameter-adjust poll (a reset: new IDR).
+    "api_main_1080p": ({"KEY_HW_WIDTH": "1920", "KEY_HW_HEIGHT": "1080",
+                        "KEY_BITRATE": "8000000", "KEY_PROFILE": "main"},
+                       API_FRAMES, {6: {"KEY_BITRATE": "6000000",
+                                        "KEY_PARAM_ADJUSTING": "1"}},
+                       (1920, 1080)),
+    # The format-2 slot: intra-only HEVC under CBR at the lowest bitrate the
+    # API's envelope accepts (core/params.py MIN_BITRATE).
+    "hevc_api": ({"KEY_ENCODE_FORMAT": "2", "KEY_HW_WIDTH": "320",
+                  "KEY_HW_HEIGHT": "240", "KEY_BITRATE": "1000000"}, 3, {},
+                 (320, 240)),
+}
 
 
 def _host(x):
@@ -331,6 +377,160 @@ def drive_rate_run(sess, bufs, n_p: int, n_staged: int, sync=lambda: None):
         out["staged"], out["t_staged"] = timed(
             lambda: sess.encode_frames_staged(chunks))
     return out
+
+
+# Phase 14: the streams the scalar oracle decodes, each as (EncoderConfig
+# fields beside width/height/qp/gop_size, frames of the clip), at 176x144
+# (QCIF) and constant QP 30 with CAVLC (the oracle parses CAVLC only). The
+# last two are the streams the device decoder refuses, so the API's
+# decoder hands them to the oracle.
+ORACLE_W, ORACLE_H = 176, 144
+ORACLE_RUNS = {
+    "oracle_cq": (dict(), 5),
+    "oracle_i4x4": (dict(i4x4=True), 5),
+    "oracle_slices4": (dict(num_slices=4, deblock_across_slices=False), 5),
+    "oracle_bgop": (dict(b_frames=1), 5),
+    "oracle_lossless": (dict(lossless=True), 1),
+}
+ORACLE_FALLBACK = ("oracle_bgop", "oracle_lossless")
+
+
+def drive_oracle_run(session_cls, config_cls, name: str, bufs, **kw):
+    """One run of ORACLE_RUNS through a session of either package: a B-GOP
+    through one encode_frames call, any other frame by frame through
+    encode_frame. Returns (session, AUs, per AU the recon planes after it
+    as numpy, None for a B-GOP's)."""
+    fields, n = ORACLE_RUNS[name]
+    sess = session_cls(config_cls(width=ORACLE_W, height=ORACLE_H, qp=QP,
+                                  gop_size=30, **fields), **kw)
+    if sess.cfg.b_frames:
+        return sess, sess.encode_frames(bufs[:n]), [None] * n
+    aus, recon = [], []
+    for buf in bufs[:n]:
+        aus.append(sess.encode_frame(buf))
+        recon.append(tuple(_host(p) for p in sess.recon))
+    return sess, aus, recon
+
+
+def api_clip(name: str):
+    """The I420 frames of an API run: the smoke clip at the run's
+    geometry."""
+    _props, n, _events, (w, h) = API_RUNS[name]
+    return clip_i420(w, h, n)[0]
+
+
+def api_codec_format(name: str) -> int:
+    """The decoder's CodecFormat for an API run's stream: H265 (1) for the
+    format-2 slot, else H264 (0)."""
+    return int(API_RUNS[name][0].get("KEY_ENCODE_FORMAT") == "2")
+
+
+def drive_api_encode(api, params, name: str, bufs, sync=lambda: None,
+                     **factory_kw) -> dict:
+    """One run of API_RUNS through create_video_encoder -> init -> start ->
+    encode_one_frame per frame -> stop -> destroy, the properties of the
+    run set on the store before the frames that name them. Works on the
+    JAX package's api/params modules as on the port's (factory_kw: the
+    port's device). Returns "codes" (every call's), "aus", "qps" (the
+    encoder's QP after each frame), "ms" per frame on the host clock
+    between calls of `sync`, and "stats" (get_encoder_statistics after the
+    last frame)."""
+    props, n, events, _geometry = API_RUNS[name]
+    store = params.ParamStore({getattr(params, k): v
+                               for k, v in props.items()})
+    enc = api.create_video_encoder(store, **factory_kw)
+    out = {"codes": [enc.init_encoder(), enc.start_encoder()], "aus": [],
+           "qps": [], "ms": []}
+    for i in range(n):
+        for k, v in events.get(i, {}).items():
+            store.set(getattr(params, k), v)
+        sync()
+        t0 = time.perf_counter()
+        code, au = enc.encode_one_frame(bufs[i])
+        sync()
+        out["ms"].append((time.perf_counter() - t0) * 1e3)
+        out["codes"].append(code)
+        out["aus"].append(bytes(au))
+        out["qps"].append(enc._current_qp())
+    out["stats"] = enc.get_encoder_statistics()
+    out["codes"] += [enc.stop_encoder(), enc.destroy_encoder()]
+    out["codes"] = [int(c) for c in out["codes"]]
+    return out
+
+
+def drive_api_decode(api, aus, codec_format: int = 0, sync=lambda: None,
+                     **factory_kw) -> dict:
+    """A stream through create_video_decoder -> create_decoder ->
+    init -> start, fed in API_FEED-byte pieces and then the end-of-stream
+    marker, drained with retrieve_frame_data after every piece (draining
+    and feeding again on WRITE_OVERFLOW, taking the new geometry on
+    BAD_PIC_SIZE) until EOS. Works on both packages' api modules. Returns
+    "codes" (every send's and the lifecycle calls'), "payloads", "events",
+    "fallbacks" (the chunks the decoder handed to the scalar oracle) and
+    "s" on the host clock between calls of `sync`."""
+    D = api.DecoderRetCode
+    dec = api.create_video_decoder(**factory_kw)
+    out = {"codes": [dec.create_decoder(codec_format), dec.init_decoder()],
+           "payloads": [], "events": [], "fallbacks": 0}
+    dec.set_callbacks(lambda ev, info: out["events"].append(int(ev)))
+    out["codes"].append(dec.start_decoder())
+    inner = dec._fallback_to_reference
+
+    def fallback(chunk):
+        out["fallbacks"] += 1
+        return inner(chunk)
+
+    dec._fallback_to_reference = fallback
+
+    def drain(until_eos: bool) -> None:
+        while True:
+            code, payload, _info = dec.retrieve_frame_data()
+            if code == D.VIDEO_DECODER_SUCCESS:
+                out["payloads"].append(payload)
+            elif code == D.VIDEO_DECODER_EOS and until_eos:
+                return
+            elif code == D.VIDEO_DECODER_READ_UNDERFLOW and not until_eos:
+                return
+            elif code != D.VIDEO_DECODER_BAD_PIC_SIZE:
+                raise AssertionError(f"retrieve_frame_data: {code!r}")
+
+    def send(piece: bytes) -> None:
+        while True:
+            code = dec.send_stream_data(piece)
+            out["codes"].append(code)
+            if code != D.VIDEO_DECODER_WRITE_OVERFLOW:
+                return
+            drain(False)
+
+    stream = b"".join(aus)
+    sync()
+    t0 = time.perf_counter()
+    for i in range(0, len(stream), API_FEED):
+        send(stream[i : i + API_FEED])
+        drain(False)
+    send(b"")
+    drain(True)
+    sync()
+    out["s"] = time.perf_counter() - t0
+    out["codes"] += [dec.stop_decoder(), dec.destroy_decoder()]
+    out["codes"] = [int(c) for c in out["codes"]
+                    if c != D.VIDEO_DECODER_WRITE_OVERFLOW]
+    return out
+
+
+def api_record(enc_run, dec_run) -> dict:
+    """What an API run is held to: every code, a digest and a size per AU,
+    the encoder's QP after each frame, a digest per decoded payload, and
+    the decoder's fallbacks to the scalar oracle."""
+    return {"codes": enc_run["codes"],
+            "au_sha256": [hashlib.sha256(a).hexdigest()
+                          for a in enc_run["aus"]],
+            "au_bytes": [len(a) for a in enc_run["aus"]],
+            "qps": [float(q) for q in enc_run["qps"]],
+            "decode_codes": dec_run["codes"],
+            "decoded_sha256": [hashlib.sha256(p).hexdigest()
+                               for p in dec_run["payloads"]],
+            "fallbacks": dec_run["fallbacks"]}
 
 
 def planes_sha(frame) -> str:
@@ -690,6 +890,51 @@ def phase_kernel_step(smi: str) -> dict:
           f"{t_graph:.3f} ms, launch by launch {t_eager:.3f} ms, all three "
           f"routes equal | {smi}")
     rec.update(route_wave_graph_ms=t_graph, route_wave_eager_ms=t_eager)
+
+    # Two threads, each its own picture of this geometry 20 times through
+    # route wave (the one CUDA graph of the geometry): every result equals
+    # its picture's plain version.
+    import threading
+
+    from media_tpu_torch.ops.deblock_wave import deblock_wave_plain
+
+    g2 = torch.Generator(device="cpu").manual_seed(12)
+    pics = [planes, _smooth_planes(R, C, g2, dev)]  # the same strengths
+    want = []
+    for pic in pics:
+        w = [p.clone() for p in pic]
+        deblock_wave_plain(*w, meta, R, C)
+        want.append(w)
+    torch.cuda.synchronize()
+    failures: list = []
+
+    def work(i):
+        try:
+            for _ in range(20):
+                got = deblock_frame(*pics[i], *args[3:], kernel="wave")
+                torch.cuda.current_stream().synchronize()
+                if not all(torch.equal(x, y) for x, y in zip(got, want[i])):
+                    failures.append(i)
+        except Exception as e:  # raised below, in the main thread
+            failures.append(repr(e))
+
+    before = deblock_wave_step.launches
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=work, args=(i,)) for i in (0, 1)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    t_threads = (time.perf_counter() - t0) * 1e3
+    rec["launches_threaded"] = deblock_wave_step.launches - before
+    if failures or rec["launches_threaded"] != 40 * n_waves(R, C):
+        raise AssertionError(f"route wave in two threads: failures "
+                             f"{failures}, {rec['launches_threaded']} "
+                             "launches")
+    print(f"[kernel] route wave in two threads, 20 pictures each (2 x 20 "
+          f"graph replays, {rec['launches_threaded']} kernel nodes): every "
+          f"result == its picture's plain version, {t_threads:.1f} ms on the "
+          f"host clock | {smi}")
     return {"max_abs_err": max_err, **rec}
 
 
@@ -1529,15 +1774,22 @@ def phase_multislice(smi: str, golden: dict, bufs):
                              "TpuDecoder's digests")
     _frame_equals(decoded[0], run["recon_idr"], f"{name}: decoded IDR")
     _frame_equals(decoded[-1], sess.recon, f"{name}: last decoded P")
-    if deblock_wave.launches != 2 * n or sum(native.fallbacks.values()):
+    # The C++ CABAC P parser stops at a slice that ends above the picture's
+    # last row (the Python parser then takes it): 3 of each P picture.
+    refused = dict(native.fallbacks)
+    if (deblock_wave.launches != 2 * n
+            or refused != {"cabac_parse_pslice_native": 3 * (n - 1)}):
         raise AssertionError(f"{name}: {deblock_wave.launches} whole-frame "
                              f"launches after the decode, native fallbacks "
-                             f"{dict(native.fallbacks)}")
+                             f"{refused}, expected 3 slices of each of "
+                             f"{n - 1} P pictures")
+    native.fallbacks.clear()
     print(f"[slices] {name} decode: {n} pictures == JAX TpuDecoder golden == "
           f"encoder recon; ms per picture: {_split(dec.timings, True)}; "
           f"{_split(dec.timings, False)} (C++ CABAC parsers; the Python "
           f"CABAC parser on the P slices that end above the picture's last "
-          f"row) | {smi}")
+          f"row: {refused['cabac_parse_pslice_native']} slices counted) | "
+          f"{smi}")
     return frame_launches + deblock_wave.launches, step_launches
 
 
@@ -1648,6 +1900,223 @@ def phase_lossless(smi: str, golden: dict, bufs) -> None:
           f"TpuDecoder refuses the stream | {smi}")
 
 
+def _check_api_record(name: str, enc_run, dec_run, want: dict) -> None:
+    """Every code SUCCESS and the golden's; AUs and payloads the golden's;
+    the encoder's QP after each frame the golden's (the rate controller's
+    carry, within RATE_FLOAT_TOL: the integer QPs are in the AUs); no
+    fallback to the oracle."""
+    got = api_record(enc_run, dec_run)
+    if got["codes"] != want["codes"] or any(got["codes"]):
+        raise AssertionError(f"{name}: encoder codes {got['codes']}")
+    if got["decode_codes"] != want["decode_codes"] or any(
+            got["decode_codes"]):
+        raise AssertionError(f"{name}: decoder codes {got['decode_codes']}")
+    _first_difference(name, enc_run["aus"], want["au_sha256"],
+                      want["au_bytes"])
+    for i, (a, b) in enumerate(zip(got["qps"], want["qps"], strict=True)):
+        if abs(a - b) > RATE_FLOAT_TOL * max(abs(a), abs(b), 1.0):
+            raise AssertionError(f"{name}: QP after frame {i} {a!r} against "
+                                 f"the golden's {b!r}")
+    if got["decoded_sha256"] != want["decoded_sha256"]:
+        raise AssertionError(f"{name}: decoded payloads differ from the JAX "
+                             f"VideoDecoder's ({len(got['decoded_sha256'])} "
+                             f"against {len(want['decoded_sha256'])})")
+    if got["fallbacks"] or want["fallbacks"]:
+        raise AssertionError(f"{name}: {got['fallbacks']} fallbacks to the "
+                             "scalar oracle")
+
+
+def phase_api(smi: str, golden: dict) -> int:
+    """The public API at full width: VideoEncoder at the shipped property
+    defaults and at 1080p on main, each stream back through VideoDecoder.
+    Returns the whole-frame kernel's launches."""
+    import torch
+
+    from media_tpu_torch import api
+    from media_tpu_torch.core import log as media_log
+    from media_tpu_torch.core import params
+    from media_tpu_torch.ops.deblock_wave import deblock_wave
+
+    sync = torch.cuda.synchronize
+    launches = 0
+    for name, idr2, what in (
+            ("api_default", 5, "forced IDR"),
+            ("api_main_1080p", 6, "IDR of the reset to 6 Mbit/s")):
+        bufs = api_clip(name)
+        w, h = API_RUNS[name][3]
+        # The media log's warning and error lines, as (level, tag, message).
+        lines: list = []
+        media_log.set_media_log_callback(
+            lambda level, tag, msg: level >= media_log.LOG_WARN
+            and lines.append((level, tag, msg)))
+        deblock_wave.launches = 0
+        enc_run = drive_api_encode(api, params, name, bufs, sync,
+                                   device="cuda")
+        dec_run = drive_api_decode(api, enc_run["aus"], 0, sync,
+                                   device="cuda")
+        n_launch = deblock_wave.launches
+        media_log.set_media_log_callback(None)
+        media_log.set_log_level(media_log.LOG_INFO)
+        _check_api_record(name, enc_run, dec_run, golden[name])
+        if lines:
+            raise AssertionError(f"{name}: the media log reported {lines}")
+        n = len(enc_run["aus"])
+        if n_launch != 2 * n:
+            raise AssertionError(f"{name}: {n_launch} whole-frame launches "
+                                 f"for {n} pictures encoded and decoded")
+        launches += n_launch
+        ms = enc_run["ms"]
+        p_ms = [t for i, t in enumerate(ms) if i not in (0, idr2)]
+        st = enc_run["stats"]
+        print(f"[api] {name} {w}x{h}: {n} frames through encode_one_frame, "
+              f"every code SUCCESS, AUs and QPs == JAX golden (sizes "
+              f"{[len(a) for a in enc_run['aus']]}, QPs "
+              f"{[round(q, 3) for q in enc_run['qps']]}), stream through "
+              f"VideoDecoder in {API_FEED}-byte pieces: {n} payloads == JAX "
+              f"golden, no fallback, no warning or error in the media log; "
+              f"deblock launches {n_launch} | {smi}")
+        print(f"[api] {name}: IDR {ms[0]:.1f} ms, {what} {ms[idr2]:.1f} ms, "
+              f"P frames {len(p_ms) / (sum(p_ms) / 1e3):.3f} fps "
+              f"(encode_one_frame, one frame a call), decode "
+              f"{len(dec_run['payloads']) / dec_run['s']:.3f} fps through the "
+              f"API | {smi}")
+        print(f"[api] {name} get_encoder_statistics: "
+              f"{json.dumps({k: v for k, v in st.items() if k != 'statistics_ts'})}")
+    return launches
+
+
+def phase_oracle(smi: str, golden: dict) -> int:
+    """The port's scalar oracle on five 176x144 streams encoded on the card,
+    and the API's hand-over to it. Returns the whole-frame kernel's
+    launches."""
+    import torch
+
+    from media_tpu_torch import api
+    from media_tpu_torch.ops.deblock_wave import deblock_wave
+    from media_tpu_torch.pipeline.codec import EncoderConfig, EncoderSession
+    from media_tpu_torch.pipeline.decoder_tpu import TpuDecoder
+    from media_tpu_torch.ref.decoder import ReferenceDecoder
+
+    deblock_wave.launches = 0
+    streams = {}
+    for name, (_fields, n) in ORACLE_RUNS.items():
+        want = golden[name]
+        bufs = clip_i420(ORACLE_W, ORACLE_H, n)[0]
+        _sess, aus, recon = drive_oracle_run(EncoderSession, EncoderConfig,
+                                             name, bufs)
+        _first_difference(name, aus, want["au_sha256"], want["au_bytes"])
+        t0 = time.perf_counter()
+        dec = ReferenceDecoder()
+        frames = [f for au in aus for f in dec.decode_annexb(au)]
+        t_ms = (time.perf_counter() - t0) * 1e3 / len(frames)
+        if [planes_sha(f) for f in frames] != want["decoded_sha256"]:
+            raise AssertionError(f"{name}: the oracle's pictures differ from "
+                                 "the JAX package's oracle's")
+        for i, (f, r) in enumerate(zip(frames, recon)):
+            if r is not None:
+                _frame_equals(f, r, f"{name}: oracle picture {i} vs recon")
+        streams[name] = (aus, frames, recon)
+        held = ("== the encoder's recon" if recon[0] is not None else
+                "(a B-GOP session keeps no recon of its B pictures)")
+        print(f"[oracle] {name} {ORACLE_W}x{ORACLE_H} {len(aus)} AUs encoded "
+              f"on cuda == JAX golden; ReferenceDecoder: {len(frames)} "
+              f"pictures == JAX oracle golden {held}; {t_ms:.1f} ms a picture "
+              f"on the host | {smi}")
+
+    # The API: the device decoder refuses these streams, the oracle takes
+    # over once and decodes every picture.
+    sync = torch.cuda.synchronize
+    for name in ORACLE_FALLBACK:
+        aus, frames, _recon = streams[name]
+        dec_run = drive_api_decode(api, aus, 0, sync, device="cuda")
+        want = [hashlib.sha256(b"".join(np.ascontiguousarray(p).tobytes()
+                                        for p in (f.y, f.u, f.v))).hexdigest()
+                for f in frames]
+        got = [hashlib.sha256(p).hexdigest() for p in dec_run["payloads"]]
+        if dec_run["fallbacks"] != 1 or got != want or any(dec_run["codes"]):
+            raise AssertionError(f"{name}: {dec_run['fallbacks']} fallbacks, "
+                                 f"codes {dec_run['codes']}, payloads equal "
+                                 f"{got == want}")
+        print(f"[oracle] {name} through VideoDecoder(device='cuda'): "
+              f"TpuDecoder refused the stream at its first picture, one "
+              f"hand-over to the oracle, {len(got)} payloads == the oracle's "
+              f"pictures | {smi}")
+    # A hand-over in mid-stream: the device decoder's SPS, PPS and reference
+    # planes (on the card) go to the oracle, which decodes the next P.
+    aus, frames, recon = streams["oracle_cq"]
+    dec = api.create_video_decoder(device="cuda")
+    dec.create_decoder(0)
+    if not isinstance(dec._decoder, TpuDecoder):
+        raise AssertionError("VideoDecoder(device='cuda') has no TpuDecoder")
+    dec._decoder.decode_annexb(aus[0])
+    if dec._decoder.ref_planes[0].device.type != dec._decoder.device.type:
+        raise AssertionError("the device decoder's reference is not on its "
+                             "device")
+    (f1,) = dec._fallback_to_reference(aus[1])
+    if not isinstance(dec._decoder, ReferenceDecoder):
+        raise AssertionError("no hand-over to the oracle")
+    _frame_equals(f1, recon[1], "oracle_cq: P after a mid-stream hand-over")
+    # A fault of the device path is DECODE_FAIL and no hand-over: the
+    # whole-frame deblocking wrapper, raising before its launch, stands in
+    # for any error of the reconstruction on the card.
+    from media_tpu_torch.api.errors import DecoderRetCode
+    from media_tpu_torch.pipeline import deblock_apply
+
+    def broken(*args, **kwargs):
+        raise ValueError("a fault of the device path")
+
+    dec = api.create_video_decoder(device="cuda")
+    handed: list = []
+    dec._fallback_to_reference = handed.append
+    codes = [dec.create_decoder(0), dec.init_decoder(), dec.start_decoder()]
+    real, deblock_apply.deblock_wave = deblock_apply.deblock_wave, broken
+    try:
+        codes.append(dec.send_stream_data(aus[0] + b"\x00\x00\x00\x01"))
+    finally:
+        deblock_apply.deblock_wave = real
+    if (any(codes[:3]) or codes[3] != DecoderRetCode.VIDEO_DECODER_DECODE_FAIL
+            or handed or not isinstance(dec._decoder, TpuDecoder)):
+        raise AssertionError(f"a device fault gave codes {codes} and "
+                             f"{len(handed)} hand-overs to the oracle")
+    print(f"[oracle] a fault of the device path (the deblocking wrapper "
+          f"raising on cuda): DECODE_FAIL, no hand-over, the device decoder "
+          f"kept | {smi}")
+    # One per deblocked picture encoded (5 + 5 + 5 + the B-GOP's IDR and
+    # two anchors; none lossless) and the IDR the device decoder decoded.
+    launches = deblock_wave.launches
+    if launches != 19:
+        raise AssertionError(f"oracle phase: {launches} whole-frame launches, "
+                             "expected 19")
+    print(f"[oracle] mid-stream hand-over: the IDR decoded on cuda, its "
+          f"SPS, PPS and reference planes to the oracle, which decodes the "
+          f"next P to the encoder's recon; deblock launches {launches} | "
+          f"{smi}")
+    return launches
+
+
+def phase_hevc(smi: str, golden: dict) -> None:
+    """The format-2 slot through both factories: intra-only HEVC, host
+    numpy in both packages."""
+    from media_tpu_torch import api
+    from media_tpu_torch.core import params
+
+    name = "hevc_api"
+    bufs = api_clip(name)
+    w, h = API_RUNS[name][3]
+    enc_run = drive_api_encode(api, params, name, bufs, device="cuda")
+    dec_run = drive_api_decode(api, enc_run["aus"], api_codec_format(name),
+                               device="cuda")
+    _check_api_record(name, enc_run, dec_run, golden[name])
+    n = len(enc_run["aus"])
+    print(f"[hevc] {w}x{h} CBR {API_RUNS[name][0]['KEY_BITRATE']} bit/s, "
+          f"{n} frames through create_video_encoder(format 2) and "
+          f"VideoDecoder(H265): codes SUCCESS, AUs (sizes "
+          f"{[len(a) for a in enc_run['aus']]}) and payloads == JAX golden; "
+          f"encode {np.mean(enc_run['ms']):.1f} ms a frame, decode "
+          f"{dec_run['s'] * 1e3 / n:.1f} ms a frame on the card's host | "
+          f"{smi}")
+
+
 def main() -> None:
     smi = phase_environment()
     import torch
@@ -1690,13 +2159,16 @@ def main() -> None:
     slice_launches, slice_step_launches = phase_multislice(smi, golden, bufs)
     bgop_launches = phase_bgop(smi, golden, bufs)
     phase_lossless(smi, golden, bufs)
+    api_launches = phase_api(smi, golden)
+    oracle_launches = phase_oracle(smi, golden)
+    phase_hevc(smi, golden)
     print(json.dumps({"kernels": [
         {"name": "deblock_wave", "route": "cuda",
          "source": "media_tpu_torch/csrc/deblock_wave.cu",
          "replaces": "media_tpu/ops/deblock_wave_pallas.py:230",
          "launches": (enc_launches + dec_launches + rate_launches
                       + cabac_launches + i4_launches + slice_launches
-                      + bgop_launches),
+                      + bgop_launches + api_launches + oracle_launches),
          "launches_encode_path": enc_launches,
          "launches_decode_path": dec_launches,
          "launches_rate_path": rate_launches,
@@ -1704,6 +2176,8 @@ def main() -> None:
          "launches_i4x4_operating_point": i4_launches,
          "launches_multislice": slice_launches,
          "launches_bgop": bgop_launches,
+         "launches_api": api_launches,
+         "launches_oracle_phase": oracle_launches,
          "per_mb_qp_ms_on_clip_frame": t_per_mb, **krec},
         {"name": "deblock_wave_step", "route": "cuda",
          "source": "media_tpu_torch/csrc/deblock_wave_step.cu",

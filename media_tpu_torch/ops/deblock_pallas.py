@@ -142,11 +142,12 @@ def deblock_wave_step(yp, up, vp, meta):
     lib = kernels.load()
     out = tuple(torch.empty_like(p) for p in (yp, up, vp))
     ptr = ctypes.c_void_p
-    err = lib.deblock_wave_step_launch(
-        ptr(yp.data_ptr()), ptr(up.data_ptr()), ptr(vp.data_ptr()),
-        ptr(meta.data_ptr()), *(ptr(o.data_ptr()) for o in out),
-        ctypes.c_int(yp.shape[0]),
-        ptr(torch.cuda.current_stream(yp.device).cuda_stream))
+    with torch.cuda.device(yp.device):  # launch on the tensors' device
+        err = lib.deblock_wave_step_launch(
+            ptr(yp.data_ptr()), ptr(up.data_ptr()), ptr(vp.data_ptr()),
+            ptr(meta.data_ptr()), *(ptr(o.data_ptr()) for o in out),
+            ctypes.c_int(yp.shape[0]),
+            ptr(torch.cuda.current_stream(yp.device).cuda_stream))
     if err:
         raise RuntimeError(f"deblock_wave_step kernel launch failed: "
                            f"{kernels.error_string(err)}")
@@ -226,10 +227,13 @@ def launch_wave_step_inplace(y, u, v, meta, R: int, C: int, k: int) -> int:
         return 0
 
     ptr = ctypes.c_void_p
-    err = kernels.load().deblock_wave_step_inplace_launch(
-        ptr(y.data_ptr()), ptr(u.data_ptr()), ptr(v.data_ptr()),
-        ptr(meta.data_ptr()), ctypes.c_int(R), ctypes.c_int(C),
-        ctypes.c_int(k), ptr(torch.cuda.current_stream(y.device).cuda_stream))
+    lib = kernels.load()
+    with torch.cuda.device(y.device):  # launch on the tensors' device
+        err = lib.deblock_wave_step_inplace_launch(
+            ptr(y.data_ptr()), ptr(u.data_ptr()), ptr(v.data_ptr()),
+            ptr(meta.data_ptr()), ctypes.c_int(R), ctypes.c_int(C),
+            ctypes.c_int(k),
+            ptr(torch.cuda.current_stream(y.device).cuda_stream))
     if err:
         raise RuntimeError(f"deblock_wave_step in-place kernel launch "
                            f"failed: {kernels.error_string(err)}")

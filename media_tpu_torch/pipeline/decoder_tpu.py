@@ -19,7 +19,11 @@ Scope: CAVLC and CABAC streams of single- or multi-slice pictures
 and I_4x4 macroblocks, per-MB QP in P slices,
 disable_deblocking_filter_idc 0/1/2, |MV| within the supported window.
 Anything else (B pictures, POC type 0, I_PCM among it) raises
-UnsupportedStream, as in the JAX package.
+UnsupportedStream, as in the JAX package. Unlike there, only the parse of a
+slice (and the MV window and route checks made before any device work)
+turns an error into UnsupportedStream: an error of the device
+reconstruction or of a kernel wrapper propagates as it is, so that a caller
+that falls back on UnsupportedStream never hides a device fault.
 """
 
 from __future__ import annotations
@@ -505,7 +509,7 @@ class TpuDecoder:
         br = BitReader(rbsp)
         hdr = SliceHeader.parse(br, sps, pps, nal_type=nal_type,
                                 nal_ref_idc=nal_ref_idc)
-        C = sps.pic_width_in_mbs
+        R, C = sps.pic_height_in_mbs, sps.pic_width_in_mbs
         if hdr.is_b or sps.pic_order_cnt_type == 0:
             # B pictures / reordered streams: outside the device path's
             # envelope; raise on the FIRST slice.
@@ -515,7 +519,7 @@ class TpuDecoder:
         if hdr.first_mb_in_slice == 0:
             self._asm = None  # new picture
         try:
-            return self._decode_slice_body(rbsp, br, hdr, nal_ref_idc)
+            asm = self._assemble_slice(rbsp, br, hdr)
         except UnsupportedStream:
             self._asm = None
             raise
@@ -524,6 +528,12 @@ class TpuDecoder:
             # Syntax outside this path's envelope.
             self._asm = None
             raise UnsupportedStream(str(e)) from e
+        if asm is None:
+            return None  # picture incomplete; wait for the next slice
+        # Only the parse above refuses a stream. An error of the device
+        # reconstruction or of a kernel wrapper propagates as it is, so the
+        # API reports DECODE_FAIL instead of moving the stream to the host.
+        return self._finish_picture(asm, hdr, nal_ref_idc, R, C)
 
     def _parse_pslice(self, rbsp: bytes, br, hdr, n_avail: int, C: int,
                       qp: int):
@@ -536,7 +546,13 @@ class TpuDecoder:
             sym = native.cabac_parse_pslice_native(
                 rbsp, pos, n_avail, C, qp,
                 hdr.cabac_init_idc) if use_native else None
-            if sym is None or sym["covered"] != n_avail * C:
+            if sym is not None and sym["covered"] != n_avail * C:
+                # The C++ parser stops at a slice that ends above the
+                # picture's last row; count it as the CAVLC route counts
+                # the refusal of its parser.
+                native.fallbacks["cabac_parse_pslice_native"] += 1
+                sym = None
+            if sym is None:
                 sym = cabac_slice.parse_pslice_cabac(
                     rbsp, pos, n_avail, C, qp, hdr.cabac_init_idc)
             if sym.get("qp_map") is None:
@@ -570,11 +586,11 @@ class TpuDecoder:
                 "is_i4": pr.is_i4, "modes4": pr.modes4,
                 "luma4_levels": pr.luma4_levels, "covered": pr.covered}
 
-    def _decode_slice_body(self, rbsp: bytes, br, hdr, nal_ref_idc: int):
+    def _assemble_slice(self, rbsp: bytes, br, hdr):
         """Parse one slice into slice-local symbol arrays (neighbor rules
-        reset at slice boundaries come for free), accumulate into the
-        picture assembly, and reconstruct on the device once the picture is
-        complete (multi-slice pictures arrive as several NALs)."""
+        reset at slice boundaries come for free) and accumulate them into
+        the picture assembly. Returns the assembly once the picture is
+        complete (multi-slice pictures arrive as several NALs), else None."""
         t0 = time.perf_counter()
         sps, pps = self.sps, self.pps
         qp = pps.pic_init_qp + hdr.slice_qp_delta
@@ -625,9 +641,9 @@ class TpuDecoder:
         asm["covered"] += covered
         asm["parse_s"] += time.perf_counter() - t0
         if asm["covered"] < R * C:
-            return None  # picture incomplete; wait for the next slice
+            return None
         self._asm = None
-        return self._finish_picture(asm, hdr, nal_ref_idc, R, C)
+        return asm
 
     def _sync(self) -> float:
         if self.profile and self.device.type == "cuda":
@@ -656,6 +672,10 @@ class TpuDecoder:
             if ix.min() < -(MV_RANGE + 1) or ix.max() > MV_RANGE + 1:
                 raise UnsupportedStream("MV beyond the device MC window")
             qp_varies = bool((asm["qp_map"] != qp).any())
+            if qp_varies and deblock and kernel == "wave":
+                # Refused before any device work, as the parse refuses.
+                raise UnsupportedStream("per-MB QP deblocking requires "
+                                        "kernel='frame'")
             qp_map = up(asm["qp_map"]) if qp_varies else None
             n = R * C
             flat = np.concatenate([

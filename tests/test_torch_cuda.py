@@ -325,3 +325,159 @@ def test_lossless_touches_no_device(cuda_device):
     assert aus == cpu.encode_frames(frames)
     assert all(isinstance(p, np.ndarray) for p in s.recon)
     assert torch.cuda.memory_allocated(cuda_device) == before
+
+
+# ------------------------------------------------ the launch-device repairs
+
+
+def _random_picture(R, C, seed, device):
+    rng = np.random.default_rng(seed)
+    planes = [torch.as_tensor(rng.integers(0, 256, (R * s, C * s)) // 8 + 100,
+                              dtype=torch.uint8, device=device)
+              for s in (16, 8, 8)]
+    bs = [torch.as_tensor(rng.integers(0, 5, (R * 4, C * 4)), dtype=torch.int32,
+                          device=device) for _ in range(2)]
+    return planes, bs
+
+
+def _launch_devices():
+    """cuda:0 given explicitly; with more than one card also the last one
+    while cuda:0 is current."""
+    n = torch.cuda.device_count()
+    return [torch.device("cuda", 0)] + (
+        [torch.device("cuda", n - 1)] if n > 1 else [])
+
+
+def test_kernels_launch_on_their_tensors_device(cuda_device):
+    """Every wrapper launches on its tensors' device, whatever device is
+    current. On a host with one card that device is the current one too,
+    so there this checks only that an explicit cuda:0 works; the repair
+    itself is checked on the last card where there is more than one (and
+    on the CPU by tests/test_torch_kernel_launch.py)."""
+    torch.cuda.set_device(0)
+    R, C = 5, 7
+    for dev in _launch_devices():
+        planes, bs = _random_picture(R, C, 3, "cpu")
+        want = tda.deblock_frame(*planes, 30, 29, *bs, R, C, kernel="frame")
+        meta = tda.build_meta(30, 29, *bs, R, C)
+        for kernel in ("frame", "wave"):
+            got = tda.deblock_frame(*(p.to(dev) for p in planes), 30, 29,
+                                    *(b.to(dev) for b in bs), R, C,
+                                    kernel=kernel)
+            assert torch.cuda.current_device() == 0
+            for a, b in zip(got, want):
+                assert a.device == dev and torch.equal(a.cpu(), b), kernel
+        c = [p.to(dev) for p in planes]
+        for k in range(dw.n_waves(R, C)):
+            dp.deblock_wave_step_inplace(*c, meta.to(dev), R, C, k)
+        for a, b in zip(c, want):
+            assert torch.equal(a.cpu(), b)
+        n = 3
+        patches = [torch.randint(90, 130, (n, s, s), dtype=torch.uint8)
+                   for s in (20, 12, 12)]
+        got = dp.deblock_wave_step(*(p.to(dev) for p in patches),
+                                   meta[:n].to(dev))
+        torch.cuda.synchronize(dev)
+        for a, b in zip(got, dp.deblock_wave_step_plain(*patches, meta[:n])):
+            assert a.device == dev and torch.equal(a.cpu(), b)
+        assert torch.cuda.current_device() == 0
+
+
+def test_wave_route_in_two_threads(cuda_device):
+    """Two threads run route `wave` on two pictures of one geometry 20 times
+    each, through the one CUDA graph of that geometry: every result equals
+    its own plain version."""
+    import threading
+
+    R, C = 9, 11
+    pics = [_random_picture(R, C, seed, cuda_device) for seed in (1, 2)]
+    want = [[p.cpu() for p in tda.deblock_frame(
+        *(q.cpu() for q in planes), 30, 29, *(b.cpu() for b in bs), R, C,
+        kernel="wave")] for planes, bs in pics]
+    errors = []
+
+    def work(i):
+        try:
+            planes, bs = pics[i]
+            for _ in range(20):
+                got = tda.deblock_frame(*planes, 30, 29, *bs, R, C,
+                                        kernel="wave")
+                torch.cuda.current_stream().synchronize()
+                if not all(torch.equal(a.cpu(), b)
+                           for a, b in zip(got, want[i])):
+                    errors.append(i)
+        except Exception as e:  # reported below
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=work, args=(i,)) for i in (0, 1)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert errors == []
+
+
+# ------------------------------------------------------- the public API
+
+
+def _api_run(store_kw, frames, device, events=None):
+    from media_tpu_torch import api
+    from media_tpu_torch.core import params as P
+
+    store = P.ParamStore({getattr(P, k): v for k, v in store_kw.items()})
+    enc = api.create_video_encoder(store, device=device)
+    assert enc.init_encoder() == 0 and enc.start_encoder() == 0
+    aus, qps = [], []
+    for i, buf in enumerate(frames):
+        for k, v in (events or {}).get(i, {}).items():
+            store.set(getattr(P, k), v)
+        code, au = enc.encode_one_frame(buf)
+        assert code == 0
+        aus.append(bytes(au))
+        qps.append(enc._current_qp())
+    dec = api.create_video_decoder(device=device)
+    assert [dec.create_decoder(0), dec.init_decoder(),
+            dec.start_decoder()] == [0, 0, 0]
+    payloads = []
+    for au in aus + [b""]:
+        assert dec.send_stream_data(au) == 0
+        while True:
+            code, payload, _info = dec.retrieve_frame_data()
+            if code == 0:
+                payloads.append(payload)
+            elif code not in (13,):  # BAD_PIC_SIZE: the new geometry
+                break
+    assert type(dec._decoder).__name__ == "TpuDecoder"
+    return aus, qps, payloads
+
+
+@pytest.mark.parametrize("profile", ["baseline", "main"])
+def test_api_lifecycle_on_cuda_matches_cpu(cuda_device, profile):
+    frames = _clip(64, 48, 6)
+    kw = {"KEY_HW_WIDTH": "64", "KEY_HW_HEIGHT": "48", "KEY_PROFILE": profile}
+    events = {3: {"KEY_FORCE_KEYFRAME": "1"},
+              5: {"KEY_BITRATE": "2000000", "KEY_PARAM_ADJUSTING": "1"}}
+    (a, qa, pa), (b, qb, pb) = (_api_run(kw, frames, d, events)
+                                for d in (cuda_device, "cpu"))
+    assert a == b and pa == pb and len(pa) == 6
+    for x, y in zip(qa, qb):  # the rate loop's float carry
+        assert abs(x - y) <= 1e-5 * max(abs(x), abs(y))
+
+
+def test_api_default_properties_on_cuda_match_the_golden(cuda_device):
+    """The shipped property defaults (720x1280 baseline, CBR, I_4x4): the
+    first three AUs are those the JAX package recorded."""
+    import json
+    import os
+
+    import chip_smoke as cs
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "media_tpu_torch", "golden_1080p.json")) as f:
+        want = json.load(f)["api_default"]
+    aus, _qps, payloads = _api_run({}, cs.api_clip("api_default")[:3],
+                                   cuda_device)
+    assert [cs.hashlib.sha256(a).hexdigest() for a in aus] == \
+        want["au_sha256"][:3]
+    assert [cs.hashlib.sha256(p).hexdigest() for p in payloads] == \
+        want["decoded_sha256"][:3]

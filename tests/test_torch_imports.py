@@ -41,7 +41,7 @@ for name in names:
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "media_tpu"))
 print(len(names), "modules;", "foreign:", bad)
-sys.exit(1 if bad or len(names) < 27 else 0)
+sys.exit(1 if bad or len(names) < 51 else 0)
 """
 
 
@@ -50,6 +50,63 @@ def test_port_imports_neither_jax_nor_media_tpu():
     proc = subprocess.run([sys.executable, "-c", _WALK], cwd=ROOT,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+# The modules of the public API, the scalar oracle, the HEVC slot and the
+# device pool.
+API_MODULES = [
+    "media_tpu_torch.core.log", "media_tpu_torch.core.params",
+    "media_tpu_torch.api", "media_tpu_torch.api.errors",
+    "media_tpu_torch.api.encoder_api", "media_tpu_torch.api.decoder_api",
+    "media_tpu_torch.ref", "media_tpu_torch.ref.deblock",
+    "media_tpu_torch.ref.decoder", "media_tpu_torch.hevc",
+    "media_tpu_torch.hevc.syntax", "media_tpu_torch.hevc.codec",
+    "media_tpu_torch.hevc.ref_decoder", "media_tpu_torch.parallel",
+    "media_tpu_torch.parallel.sharding",
+]
+
+# torch first (it is no foreign module), then one forked child per module:
+# each child starts with nothing of the port, of JAX or of media_tpu loaded,
+# imports its module and reports what came with it.
+_ONE_BY_ONE = """
+import json, os, sys
+import numpy, torch
+out = {}
+for name in sys.argv[1:]:
+    r, w = os.pipe()
+    if os.fork() == 0:
+        os.close(r)
+        before = [m for m in sys.modules if m.split(".")[0] in (
+            "jax", "jaxlib", "media_tpu", "media_tpu_torch")]
+        import importlib
+        importlib.import_module(name)
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "media_tpu"))
+        os.write(w, json.dumps({"before": before, "foreign": bad}).encode())
+        os._exit(0)
+    os.close(w)
+    with os.fdopen(r) as f:
+        out[name] = json.loads(f.read() or "null")
+    os.wait()
+print(json.dumps(out))
+"""
+
+
+@pytest.fixture(scope="module")
+def imported_one_by_one():
+    proc = subprocess.run([sys.executable, "-c", _ONE_BY_ONE, *API_MODULES],
+                          cwd=ROOT, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    import json
+
+    return json.loads(proc.stdout.splitlines()[-1])
+
+
+@pytest.mark.parametrize("name", API_MODULES)
+def test_api_module_imports_neither_jax_nor_media_tpu(imported_one_by_one,
+                                                      name):
+    assert imported_one_by_one[name] == {"before": [], "foreign": []}
 
 
 _GEN = """

@@ -14,6 +14,7 @@ session per configuration; the JAX side deblocks one wave per scan step
 import numpy as np
 import pytest
 
+import chip_smoke as cs
 from media_tpu.pipeline.codec import EncoderConfig as JaxConfig
 from media_tpu.pipeline.codec import EncoderSession as JaxSession
 from media_tpu.ref.decoder import ReferenceDecoder
@@ -148,3 +149,26 @@ def test_reference_decoder_decodes_the_ports_multislice_stream(across):
     f = frames[-1]
     for plane, rec in zip((f.y, f.u, f.v), s.recon):
         np.testing.assert_array_equal(plane, rec.numpy())
+
+
+def test_cabac_p_slices_the_cpp_parser_stops_at_are_counted():
+    """A four-slice CABAC P picture at 64x64 (one MB row a slice): the C++
+    CABAC P parser stops at the end of each of the three upper slices, the
+    Python parser takes them, and each is counted in native.fallbacks under
+    the parser's name, as the CAVLC route counts its parser's refusals."""
+    from media_tpu_torch import native
+    from media_tpu_torch.pipeline.decoder_tpu import TpuDecoder
+
+    bufs = [yuv.pack_i420(*f) for f in cs.synthetic_video(64, 64, 2)]
+    s = EncoderSession(EncoderConfig(width=64, height=64, qp=QP, cabac=True,
+                                     num_slices=4), device="cpu")
+    assert s.slice_rows == [(0, 1), (1, 2), (2, 3), (3, 4)]
+    aus = [s.encode_frame(b) for b in bufs]
+    dec = TpuDecoder(device="cpu")
+    before = native.fallbacks.copy()
+    dec.decode_annexb(aus[0])
+    assert native.fallbacks == before  # the I slices parse in C++
+    (f,) = dec.decode_annexb(aus[1])
+    added = native.fallbacks - before
+    assert dict(added) == {"cabac_parse_pslice_native": 3}
+    np.testing.assert_array_equal(f.y, s.recon[0].numpy())

@@ -15,14 +15,23 @@ the I_4x4 decision also the IDR's count of I_4x4 macroblocks); then down
 chip_smoke.TOOL_RUNS (four slices with CAVLC and slice-local deblocking,
 four slices with CABAC under CBR, the IBPBP B-GOP, lossless I_PCM), recording
 per AU a digest and a size, the QP of every P picture and, where the device
-decoder takes the stream, its decoded pictures. It writes the sha256 of the
+decoder takes the stream, its decoded pictures; then down chip_smoke.API_RUNS
+through the public API (VideoEncoder at the shipped property defaults, at
+1080p on main with a bitrate change, and the format-2 HEVC slot), recording
+every return code, per AU a digest and a size, the encoder's QP after each
+frame, and the digest of every payload that VideoDecoder hands out for the
+stream; then down chip_smoke.ORACLE_RUNS (five 176x144 streams at constant
+QP: IDR + 4 P, the same with I_4x4, four slices, the B-GOP, lossless),
+recording per AU a digest and a size and the digest of every picture the
+scalar ReferenceDecoder decodes. It writes the sha256 of the
 input clip, of the access units and of every decoded picture's planes to
 media_tpu_torch/golden_1080p.json.
 
     JAX_PLATFORMS=cpu python tools/record_torch_golden.py
     JAX_PLATFORMS=cpu python tools/record_torch_golden.py --only bgop,lossless
 
---only name[,name] records the named runs of RATE_RUNS and TOOL_RUNS into
+--only name[,name] records the named runs of RATE_RUNS, TOOL_RUNS,
+API_RUNS and ORACLE_RUNS into
 the existing file and leaves every other entry as it is.
 
 A full run takes some tens of minutes of CPU time (most of it XLA compiling
@@ -106,11 +115,41 @@ def record_run(cs, bufs, name: str) -> dict:
     return rec
 
 
+def record_api_run(cs, name: str) -> dict:
+    """One run of chip_smoke.API_RUNS through the JAX package's public API:
+    the encoder lifecycle on the run's clip, then its stream through the
+    VideoDecoder."""
+    from media_tpu import api
+    from media_tpu.core import params
+
+    enc_run = cs.drive_api_encode(api, params, name, cs.api_clip(name))
+    dec_run = cs.drive_api_decode(api, enc_run["aus"],
+                                  cs.api_codec_format(name))
+    return {"n": len(enc_run["aus"]), **cs.api_record(enc_run, dec_run)}
+
+
+def record_oracle_run(cs, name: str) -> dict:
+    """One run of chip_smoke.ORACLE_RUNS: the JAX session's AUs at 176x144,
+    and the pictures the JAX package's scalar ReferenceDecoder decodes from
+    them."""
+    from media_tpu.pipeline.codec import EncoderConfig, EncoderSession
+    from media_tpu.ref.decoder import ReferenceDecoder
+
+    bufs = cs.clip_i420(cs.ORACLE_W, cs.ORACLE_H, cs.ORACLE_RUNS[name][1])[0]
+    _sess, aus, _recon = cs.drive_oracle_run(EncoderSession, EncoderConfig,
+                                             name, bufs)
+    dec = ReferenceDecoder()
+    return {"au_sha256": [hashlib.sha256(a).hexdigest() for a in aus],
+            "au_bytes": [len(a) for a in aus],
+            "decoded_sha256": [cs.planes_sha(f) for au in aus
+                               for f in dec.decode_annexb(au)]}
+
+
 def main() -> None:
     import chip_smoke as cs
 
     t0 = time.perf_counter()
-    names = [*cs.RATE_RUNS, *cs.TOOL_RUNS]
+    names = [*cs.RATE_RUNS, *cs.TOOL_RUNS, *cs.API_RUNS, *cs.ORACLE_RUNS]
     only = None
     if "--only" in sys.argv[1:]:
         only = sys.argv[sys.argv.index("--only") + 1].split(",")
@@ -129,7 +168,12 @@ def main() -> None:
         if rec["clip_sha256"] != clip_sha:
             raise SystemExit("--only: the recorded file is of another clip")
     for name in names if only is None else only:
-        rec[name] = record_run(cs, bufs, name)
+        if name in cs.API_RUNS:
+            rec[name] = record_api_run(cs, name)
+        elif name in cs.ORACLE_RUNS:
+            rec[name] = record_oracle_run(cs, name)
+        else:
+            rec[name] = record_run(cs, bufs, name)
         print(f"{name}: {time.perf_counter() - t0:.1f} s", flush=True)
         # Written after every run, so that an interrupted recording keeps
         # what it finished.
