@@ -90,8 +90,25 @@ Phases, one line each; nothing is caught, any failure exits non-zero:
      payload the oracle's picture; and one hand-over in mid-stream, with the
      device decoder's reference planes;
  15. the format-2 (HEVC) slot through both factories at 320x240 under CBR:
-     AUs and payloads the golden's.
-Phases 9 to 15 hold every AU and decoded picture to the golden as well.
+     AUs and payloads the golden's;
+ 16. row tiles (parallel/sharding.py), several on the one card at 1080p:
+     (a) ShardedEncoderSession over ["cuda:0"] * 4 (tiles of 17 MB rows)
+     on the slices4_cavlc configuration, AUs the slices4_cavlc golden's;
+     (b) one tile on phase 5's first 5 frames, AUs phase 5's golden; (c)
+     CBR 8 Mbit/s with CAVLC and adaptive_qp over 4 tiles, IDR + 4 P, AUs,
+     QPs and the tiles' bits exact and the rate state within 1e-5 against
+     the sharded4_cbr_aq golden (the JAX ShardedEncoderSession on 4 virtual
+     CPU devices); one whole-frame launch per tile per picture; IDR ms and
+     P fps; (d) the API with media.tpu.multichip=1 at 64x64: a
+     ShardedEncoderSession from the pool, no warning, 3 frames encoded and
+     decoded, the pool's load back to 0 after destroy_encoder;
+ 17. GOP dispatch at 1080p, constant QP 30, CAVLC, 6 GOPs of 16 frames: one
+     sequential session applying reset_gop_state per GOP, GopDispatcher with
+     2 threads, dispatch_multiprocess with 1, 2 and 4 spawned processes (a
+     gloo process group at 4), MPS off; every AU list equal to the
+     sequential one; fps of the warm window, scaling_efficiency,
+     dispatch_overhead, prewarm_s.
+Phases 9 to 16 hold every AU and decoded picture to the golden as well.
 Phase 3 also runs route wave in two threads, 20 pictures each.
 The second-to-last line is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
@@ -203,6 +220,21 @@ TOOL_RUNS = {
 # The runs whose stream the device decoder takes (B and I_PCM streams are
 # outside it in both packages).
 TOOL_RUNS_DECODED = ("slices4_cavlc", "slices4_cabac_cbr")
+
+# Phase 16: row tiles, one slice each. The run with a golden of its own:
+# the operating point's rate loop with CAVLC and per-MB QP over four tiles
+# (four devices in the recorder, four tiles on the one card here), IDR + 4 P.
+SHARDED_RUN = "sharded4_cbr_aq"
+SHARDED_TILES = 4
+SHARDED_FIELDS = dict(adaptive_qp=True, **CBR)
+N_SHARDED = 5
+
+# Phase 17: GOP dispatch at constant QP with CAVLC, GOP 16, GOPS_DISPATCH
+# GOPs of the clip; the worker counts of the thread and process dispatchers.
+GOP_DISPATCH = 16
+GOPS_DISPATCH = 6
+DISPATCH_THREADS = 2
+DISPATCH_PROCS = (1, 2, 4)
 
 # The public API (phases 13 and 15), each run as (properties set on a fresh
 # ParamStore, by the name of their key in core/params.py; frames; for a
@@ -346,6 +378,56 @@ def tool_record(sess, run) -> dict:
     if sess.cfg.rc_mode == "cbr":
         rec["rc_final"] = {k: float(v) for k, v in sess.rc_state.items()}
     return rec
+
+
+def tap_sharded(sess) -> list:
+    """Record what a sharded session's P runs assemble: per run the tiles'
+    bit counts (K, n) and the frames' QPs (None at constant QP), as host
+    arrays. Wraps _pslice_aus_from_streams, which both packages'
+    ShardedEncoderSession call with host arrays once a run is accepted
+    (after any retry at a doubled cap)."""
+    inner = sess._pslice_aus_from_streams
+    log: list = []
+
+    def tapped(streams_h, bits_h, k, qps=None):
+        log.append((np.asarray(bits_h),
+                    None if qps is None else np.asarray(qps)))
+        return inner(streams_h, bits_h, k, qps=qps)
+
+    sess._pslice_aus_from_streams = tapped
+    return log
+
+
+def drive_sharded_run(sess, bufs, n: int, sync=lambda: None) -> dict:
+    """n frames of the clip through a sharded session: the IDR through one
+    encode_frames call, the P frames through a second. Works on the JAX
+    package's ShardedEncoderSession as on the port's. Returns "aus", "log"
+    (tap_sharded's), "t_idr" and "t_p" in seconds."""
+    out = {"log": tap_sharded(sess)}
+
+    def timed(fn):
+        sync()
+        t0 = time.perf_counter()
+        res = fn()
+        sync()
+        return res, time.perf_counter() - t0
+
+    idr, out["t_idr"] = timed(lambda: sess.encode_frames(bufs[:1]))
+    rest, out["t_p"] = timed(lambda: sess.encode_frames(bufs[1:n]))
+    out["aus"] = idr + rest
+    return out
+
+
+def sharded_record(sess, aus, log) -> dict:
+    """What a sharded run is held to: a digest and a size per AU, per P
+    frame the tiles' bit counts and the QP, and the final rate state."""
+    return {
+        "au_sha256": [hashlib.sha256(a).hexdigest() for a in aus],
+        "au_bytes": [len(a) for a in aus],
+        "bits": [[int(b) for b in row] for bits, _q in log for row in bits],
+        "qps": [int(q) for _b, qps in log if qps is not None for q in qps],
+        "rc_final": {k: float(v) for k, v in sess.base.rc_state.items()},
+    }
 
 
 def drive_rate_run(sess, bufs, n_p: int, n_staged: int, sync=lambda: None):
@@ -2117,6 +2199,222 @@ def phase_hevc(smi: str, golden: dict) -> None:
           f"{smi}")
 
 
+def _check_sharded_record(name: str, aus, got: dict, want: dict,
+                          target: float) -> None:
+    """AUs, QPs and the tiles' bits exact; the final rate state within
+    RATE_FLOAT_TOL. Names the first AU that differs."""
+    _first_difference(name, aus, want["au_sha256"], want["au_bytes"])
+    if (len(aus) != len(want["au_sha256"]) or got["qps"] != want["qps"]
+            or got["bits"] != want["bits"]):
+        raise AssertionError(f"{name}: {len(aus)} AUs, QPs {got['qps']}, "
+                             f"bits {got['bits']} against "
+                             f"{len(want['au_sha256'])}, {want['qps']}, "
+                             f"{want['bits']}")
+    for k, b in want["rc_final"].items():
+        a = got["rc_final"][k]
+        scale = max(abs(a), abs(b), target if k == "buf" else 0.0)
+        if scale and abs(a - b) / scale > RATE_FLOAT_TOL:
+            raise AssertionError(f"{name}: rate state {k} {a!r} against {b!r}")
+
+
+def phase_sharded(smi: str, golden: dict, bufs) -> int:
+    """Row tiles, one slice each, as several tiles on the one card: the
+    four-slice golden, phase 5's golden on one tile, the tiled CBR run's own
+    golden, and the API's forced placement. Returns the whole-frame
+    kernel's launches (one per tile per picture, and the API stream's
+    decode)."""
+    import torch
+
+    from media_tpu_torch import api
+    from media_tpu_torch.core import log as media_log
+    from media_tpu_torch.core import params
+    from media_tpu_torch.ops.deblock_wave import deblock_wave
+    from media_tpu_torch.parallel.sharding import (
+        ShardedEncoderSession, get_pool)
+    from media_tpu_torch.pipeline.codec import EncoderConfig
+    from media_tpu_torch.pipeline.decoder_tpu import TpuDecoder
+
+    sync = torch.cuda.synchronize
+    launches = 0
+    runs = (
+        # (what, the golden's name, fields, tiles, frames)
+        ("(a) slices4_cavlc on 4 tiles", "slices4_cavlc",
+         TOOL_RUNS["slices4_cavlc"][0], SHARDED_TILES,
+         TOOL_RUNS["slices4_cavlc"][1]),
+        ("(b) phase 5 on 1 tile", None, {}, 1, 1 + N_CQ_P),
+        (f"(c) {SHARDED_RUN} on {SHARDED_TILES} tiles", SHARDED_RUN,
+         SHARDED_FIELDS, SHARDED_TILES, N_SHARDED),
+    )
+    for what, name, fields, tiles, n in runs:
+        sess = ShardedEncoderSession(
+            EncoderConfig(width=WIDTH, height=HEIGHT, qp=QP, gop_size=300,
+                          **fields), devices=["cuda:0"] * tiles)
+        if (sess.mesh != (torch.device("cuda", 0),) * tiles
+                or [r0 for r0, _ in sess.base.slice_rows]
+                != [i * R_MB // tiles for i in range(tiles)]):
+            raise AssertionError(f"sharded {what}: mesh {sess.mesh}, slices "
+                                 f"{sess.base.slice_rows}")
+        deblock_wave.launches = 0
+        run = drive_sharded_run(sess, bufs, n, sync)
+        n_launch = deblock_wave.launches
+        if name == SHARDED_RUN:
+            got = sharded_record(sess, run["aus"], run["log"])
+            _check_sharded_record(name, run["aus"], got, golden[name],
+                                  sess.base._rc_target)
+            detail = (f"AUs, QPs {got['qps']} and the tiles' bits == JAX "
+                      f"golden (4 virtual CPU devices), rate state "
+                      f"{ {k: round(v, 3) for k, v in got['rc_final'].items()} }")
+        else:
+            want = golden[name] if name else golden
+            _first_difference(f"sharded {what}", run["aus"],
+                              want["au_sha256"], want["au_bytes"])
+            detail = f"AUs == the {name or 'phase 5'} golden"
+        if n_launch != n * tiles:
+            raise AssertionError(f"sharded {what}: {n_launch} whole-frame "
+                                 f"launches for {n} pictures of {tiles} tiles")
+        launches += n_launch
+        recon = [p.cpu().numpy() for p in sess.recon]
+        last = np.frombuffer(bufs[n - 1][: WIDTH * HEIGHT], np.uint8).reshape(
+            HEIGHT, WIDTH)
+        psnr = _psnr(recon[0][:HEIGHT, :WIDTH], last)
+        if not psnr > 25.0:  # the CBR run's last frame is at QP 37
+            raise AssertionError(f"sharded {what}: last recon PSNR {psnr:.2f}")
+        print(f"[sharded] {what} {WIDTH}x{HEIGHT}, tiles of {R_MB // tiles} "
+              f"MB rows on cuda:0: {detail}; deblock launches "
+              f"{n_launch}/{n * tiles} (one per tile per picture); IDR "
+              f"{run['t_idr'] * 1e3:.1f} ms, P frames "
+              f"{(n - 1) / run['t_p']:.3f} fps, PSNR(last Y) {psnr:.3f} dB "
+              f"| {smi}")
+
+    # (d) the API's forced placement: one tile a CUDA device of the pool
+    lines: list = []
+    media_log.set_media_log_callback(
+        lambda level, tag, msg: level >= media_log.LOG_WARN
+        and lines.append((level, tag, msg)))
+    w, h = 64, 64
+    store = params.ParamStore({params.KEY_HW_WIDTH: w, params.KEY_HW_HEIGHT: h,
+                               params.KEY_MULTICHIP: "1"})
+    enc = api.create_video_encoder(store, device="cuda")
+    codes = [enc.init_encoder(), enc.start_encoder()]
+    sess = enc.session
+    pool = get_pool()
+    loads = pool.loads()
+    small = clip_i420(w, h, 3, seed=7)[0]
+    deblock_wave.launches = 0
+    aus = []
+    for buf in small:
+        code, au = enc.encode_one_frame(buf)
+        codes.append(code)
+        aus.append(bytes(au))
+    recon = [p.clone() for p in sess.recon]
+    codes.append(enc.destroy_encoder())
+    dec = TpuDecoder()
+    decoded = [f for au in aus for f in dec.decode_annexb(au)]
+    n_launch = deblock_wave.launches
+    media_log.set_media_log_callback(None)
+    media_log.set_log_level(media_log.LOG_INFO)
+    if (not isinstance(sess, ShardedEncoderSession)
+            or sess.mesh != (torch.device("cuda", 0),)
+            or any(int(c) for c in codes) or lines
+            or not any(loads) or any(pool.loads())):
+        raise AssertionError(f"sharded (d): session {type(sess).__name__} on "
+                             f"{getattr(sess, 'mesh', None)}, codes "
+                             f"{[int(c) for c in codes]}, log {lines}, pool "
+                             f"loads {loads} then {pool.loads()}")
+    _frame_equals(decoded[-1], recon, "sharded (d): decoded vs recon")
+    if n_launch != 2 * len(aus):
+        raise AssertionError(f"sharded (d): {n_launch} whole-frame launches")
+    launches += n_launch
+    print(f"[sharded] (d) API {w}x{h} baseline, media.tpu.multichip=1: a "
+          f"ShardedEncoderSession on {[str(d) for d in sess.mesh]} from the "
+          f"pool (loads {loads} -> {pool.loads()} after destroy), no warning, "
+          f"{len(aus)} frames through encode_one_frame, every code SUCCESS, "
+          f"decoded == recon, deblock launches {n_launch} | {smi}")
+    return launches
+
+
+def phase_gop_dispatch(smi: str) -> int:
+    """GOP dispatch at 1080p: one sequential session applying
+    reset_gop_state per GOP, the thread dispatcher, and the process
+    dispatcher with 1, 2 and 4 workers on the one card, every AU list equal
+    to the sequential one. Returns the whole-frame kernel's launches."""
+    import torch
+
+    from media_tpu_torch.ops.deblock_wave import deblock_wave
+    from media_tpu_torch.parallel.gop_dispatch import GopDispatcher
+    from media_tpu_torch.parallel.gop_dispatch_mp import dispatch_multiprocess
+    from media_tpu_torch.pipeline.codec import EncoderConfig, EncoderSession
+
+    n = GOP_DISPATCH * GOPS_DISPATCH
+    frames = clip_i420(n=n)[0]
+    cfg_kwargs = dict(width=WIDTH, height=HEIGHT, qp=QP,
+                      gop_size=GOP_DISPATCH)
+    sync = torch.cuda.synchronize
+    mps = "MPS off: the worker contexts time-slice the card"
+
+    sess = EncoderSession(EncoderConfig(**cfg_kwargs))
+    sess.encode_frames(frames[:2])  # warm: this geometry's first IDR
+    deblock_wave.launches = 0
+    sync()
+    t0 = time.perf_counter()
+    seq = []
+    for g in range(GOPS_DISPATCH):
+        sess.reset_gop_state(g)
+        seq += sess.encode_frames(
+            frames[g * GOP_DISPATCH : (g + 1) * GOP_DISPATCH])
+    sync()
+    t_seq = time.perf_counter() - t0
+    launches = deblock_wave.launches
+    if launches != n:
+        raise AssertionError(f"gop sequential: {launches} launches for {n}")
+    print(f"[gop] sequential EncoderSession {WIDTH}x{HEIGHT} QP{QP} CAVLC, "
+          f"{GOPS_DISPATCH} GOPs of {GOP_DISPATCH}, reset_gop_state per GOP: "
+          f"{n / t_seq:.3f} fps ({sum(len(a) for a in seq)} B) | {smi}")
+    del sess
+
+    deblock_wave.launches = 0
+    disp = GopDispatcher(EncoderConfig(**cfg_kwargs), DISPATCH_THREADS)
+    aus = disp.encode(frames)
+    sync()
+    rep = disp.report
+    disp.close()
+    if aus != seq or deblock_wave.launches != n:
+        raise AssertionError(f"gop threads: AUs equal {aus == seq}, "
+                             f"{deblock_wave.launches} launches for {n}")
+    launches += deblock_wave.launches
+    print(f"[gop] GopDispatcher {DISPATCH_THREADS} threads on cuda: AUs == "
+          f"sequential; {n / rep.wall_s:.3f} fps, dispatch_overhead "
+          f"{rep.dispatch_overhead:.4f}, scaling_efficiency "
+          f"{rep.compute_s_total / DISPATCH_THREADS / rep.wall_s:.4f} "
+          f"(busiest worker {rep.busiest_worker_s:.2f} s of {rep.wall_s:.2f} "
+          f"s) | {smi}")
+
+    for k in DISPATCH_PROCS:
+        aus, rep = dispatch_multiprocess(
+            cfg_kwargs, frames, GOP_DISPATCH, n_procs=k,
+            use_distributed=(k == 4), prewarm=True, device="cuda")
+        if (aus != seq or rep.kernel_launches != n
+                or rep.distributed != (k == 4)):
+            raise AssertionError(
+                f"gop {k} processes: AUs equal {aus == seq}, "
+                f"{rep.kernel_launches} launches for {n}, process group "
+                f"{rep.distributed}")
+        launches += rep.kernel_launches
+        per = {}
+        for g in rep.gops:
+            per[g.worker] = per.get(g.worker, 0.0) + g.compute_s
+        overhead = (rep.warm_wall_s - max(per.values())) / rep.warm_wall_s
+        print(f"[gop] dispatch_multiprocess {k} process"
+              f"{'es' if k > 1 else ''} on cuda"
+              f"{', gloo process group' if k == 4 else ''}: AUs == "
+              f"sequential; warm window {n / rep.warm_wall_s:.3f} fps, "
+              f"scaling_efficiency {rep.scaling_efficiency:.4f}, "
+              f"dispatch_overhead {overhead:.4f}, prewarm_s "
+              f"{rep.prewarm_s:.3f}, wall with start-up {rep.wall_s:.2f} s "
+              f"({mps}) | {smi}")
+    return launches
+
+
 def main() -> None:
     smi = phase_environment()
     import torch
@@ -2162,13 +2460,16 @@ def main() -> None:
     api_launches = phase_api(smi, golden)
     oracle_launches = phase_oracle(smi, golden)
     phase_hevc(smi, golden)
+    sharded_launches = phase_sharded(smi, golden, bufs)
+    gop_launches = phase_gop_dispatch(smi)
     print(json.dumps({"kernels": [
         {"name": "deblock_wave", "route": "cuda",
          "source": "media_tpu_torch/csrc/deblock_wave.cu",
          "replaces": "media_tpu/ops/deblock_wave_pallas.py:230",
          "launches": (enc_launches + dec_launches + rate_launches
                       + cabac_launches + i4_launches + slice_launches
-                      + bgop_launches + api_launches + oracle_launches),
+                      + bgop_launches + api_launches + oracle_launches
+                      + sharded_launches + gop_launches),
          "launches_encode_path": enc_launches,
          "launches_decode_path": dec_launches,
          "launches_rate_path": rate_launches,
@@ -2178,6 +2479,8 @@ def main() -> None:
          "launches_bgop": bgop_launches,
          "launches_api": api_launches,
          "launches_oracle_phase": oracle_launches,
+         "launches_sharded": sharded_launches,
+         "launches_gop_dispatch": gop_launches,
          "per_mb_qp_ms_on_clip_frame": t_per_mb, **krec},
         {"name": "deblock_wave_step", "route": "cuda",
          "source": "media_tpu_torch/csrc/deblock_wave_step.cu",

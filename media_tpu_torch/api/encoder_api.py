@@ -14,10 +14,16 @@ Per-frame semantics reproduced from the OpenH264 adapter's hot loop
 The port's copy of media_tpu/api/encoder_api.py: the same contract, policy
 and codes, with a `device` argument on VideoEncoder and
 create_video_encoder ("cuda" unless the caller passes another; a CUDA
-device that is not there raises) that the H.264 session runs on.
+device that is not there raises) that the H.264 session runs on, and the
+same multi-device placement (_place_session). One difference: a CABAC or
+lossless configuration placed on several devices keeps the single-device
+session (parallel/sharding.py refuses it), where the original's sharded
+session writes a stream that does not decode.
 """
 
 from __future__ import annotations
+
+import torch
 
 from ..core import params as P
 from ..core.log import Logger
@@ -163,17 +169,40 @@ class VideoEncoder:
             cabac=p.profile in ("main", "high"))
 
     def _place_session(self, cfg: EncoderConfig, p: P.EncodeParams):
-        """The original places a session on a multi-device mesh over the
-        pool's least-loaded devices (ni_rsrc_allocate_auto analog,
-        vendor/netint/ni_rsrc_api.h:343-348) when the host has more than one
-        accelerator, or when property media.tpu.multichip=1 forces it. The
-        port has no multi-device session yet (parallel/sharding.py holds only
-        the pool), so every session is the single-device one: a forced
-        media.tpu.multichip=1 logs one warning, and a host with several
-        cards logs nothing."""
-        if self._store.get_str(P.KEY_MULTICHIP) == "1":
-            log.warn("multi-chip placement failed (no multi-device session "
-                     "in this package); single chip")
+        """Least-load multi-device placement (ni_rsrc_allocate_auto analog,
+        vendor/netint/ni_rsrc_api.h:343-348): with more than one CUDA
+        device and a session device of type cuda, the session lands on a
+        ShardedEncoderSession over the pool's least-loaded devices.
+        Otherwise (one card, or the CPU) the single-device session;
+        property media.tpu.multichip=1/0 forces/disables. A forced
+        placement draws from parallel.sharding.get_pool(), whose devices
+        are every CUDA device (one tile on the one card of a one-GPU
+        host). A placement that fails (a CABAC or lossless configuration,
+        which the sharded session refuses, or a pool without CUDA) logs a
+        warning and keeps the single-device session."""
+        want = self._store.get_str(P.KEY_MULTICHIP)
+        auto = (self._device.type == "cuda"
+                and torch.cuda.device_count() > 1)
+        if (want == "1") or (auto and want != "0"):
+            try:
+                from ..parallel.sharding import ShardedEncoderSession, get_pool
+
+                pool = get_pool()
+                n_dev = len(pool.loads())
+                if p.height // 16 >= n_dev:
+                    sid, devs = pool.allocate(p.width, p.height, p.framerate,
+                                              n_devices=n_dev)
+                    try:
+                        sess = ShardedEncoderSession(cfg, devices=devs)
+                    except Exception:
+                        pool.release(sid)
+                        raise
+                    sess._pool_sid = sid
+                    log.info("placed on %d-device mesh (pool id %d)",
+                             len(devs), sid)
+                    return sess
+            except Exception as e:
+                log.warn("multi-chip placement failed (%s); single chip", e)
         return EncoderSession(cfg, device=self._device)
 
     def start_encoder(self) -> EncoderRetCode:
@@ -226,7 +255,16 @@ class VideoEncoder:
         return EncoderRetCode.VIDEO_ENCODER_SUCCESS
 
     def destroy_encoder(self) -> EncoderRetCode:
-        # Idempotent, like the reference's guarded destroy.
+        # Idempotent, like the reference's guarded destroy. A pool-placed
+        # session returns its capacity (ni_rsrc_release_resource analog).
+        sid = getattr(self._session, "_pool_sid", None)
+        if sid is not None:
+            try:
+                from ..parallel.sharding import get_pool
+
+                get_pool().release(sid)
+            except Exception:
+                pass
         self._session = None
         self._started = False
         return EncoderRetCode.VIDEO_ENCODER_SUCCESS

@@ -183,7 +183,9 @@ def deblock_wave(y, u, v, meta, R: int, C: int) -> None:
         return
     check_aligned(y, u, v, meta)
     launch_deblock_wave(y, u, v, meta, R, C)
-    deblock_wave.launches += 1
+    with _COUNT_LOCK:  # sessions in several threads launch it
+        deblock_wave.launches += 1
 
 
 deblock_wave.launches = 0
+_COUNT_LOCK = threading.Lock()

@@ -481,3 +481,51 @@ def test_api_default_properties_on_cuda_match_the_golden(cuda_device):
         want["au_sha256"][:3]
     assert [cs.hashlib.sha256(p).hexdigest() for p in payloads] == \
         want["decoded_sha256"][:3]
+
+
+@pytest.mark.parametrize("rc", ["cq", "cbr"])
+def test_two_tiles_on_cuda_match_cpu(cuda_device, rc):
+    """Two row tiles on the one card (["cuda:0"] * 2) against the same
+    session on ["cpu"] * 2 (tests/test_torch_sharding.py and
+    test_torch_multislice.py hold that one to the JAX package): AUs,
+    recon, rate state; one whole-frame launch per tile per picture."""
+    from media_tpu_torch.parallel.sharding import ShardedEncoderSession
+
+    bufs = _clip(64, 64, 4, seed=11)
+    kw = dict(width=64, height=64, qp=30, gop_size=30)
+    if rc == "cbr":
+        kw.update(rc_mode="cbr", bitrate=150_000, framerate=30,
+                  adaptive_qp=True, i4x4=True)
+    out = {}
+    for devs in (["cuda:0"] * 2, ["cpu"] * 2):
+        s = ShardedEncoderSession(EncoderConfig(**kw), devices=devs)
+        before = dw.deblock_wave.launches
+        aus = s.encode_frames(bufs[:1]) + s.encode_frames(bufs[1:])
+        out[devs[0]] = (aus, [p.cpu() for p in s.recon], s.base.rc_state,
+                        dw.deblock_wave.launches - before)
+    gpu, cpu = out["cuda:0"], out["cpu"]
+    assert gpu[0] == cpu[0]
+    assert all(torch.equal(a, b) for a, b in zip(gpu[1], cpu[1]))
+    assert gpu[3] == 2 * len(bufs) and cpu[3] == 0
+    for k in ("qp", "buf", "cplx"):
+        assert gpu[2][k] == pytest.approx(cpu[2][k], rel=1e-5)
+
+
+def test_process_dispatch_on_cuda_matches_a_session(cuda_device):
+    """dispatch_multiprocess over two spawned workers on the card: the AUs
+    of one session on the card that applies the same GOP resets, and one
+    whole-frame launch per picture in the workers."""
+    from media_tpu_torch.parallel.gop_dispatch_mp import dispatch_multiprocess
+
+    w, h, gop, ngops = 64, 48, 3, 2
+    bufs = _clip(w, h, gop * ngops, seed=12)
+    cfg = dict(width=w, height=h, qp=30, gop_size=gop)
+    aus, rep = dispatch_multiprocess(cfg, bufs, gop, n_procs=2,
+                                     use_distributed=False, device="cuda")
+    sess = EncoderSession(EncoderConfig(**cfg), device=cuda_device)
+    want = []
+    for g in range(ngops):
+        sess.reset_gop_state(g)
+        want += sess.encode_frames(bufs[g * gop : (g + 1) * gop])
+    assert aus == want
+    assert rep.kernel_launches == len(bufs) and rep.n_procs == 2

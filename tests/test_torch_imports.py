@@ -41,7 +41,7 @@ for name in names:
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "media_tpu"))
 print(len(names), "modules;", "foreign:", bad)
-sys.exit(1 if bad or len(names) < 51 else 0)
+sys.exit(1 if bad or len(names) < 53 else 0)
 """
 
 
@@ -52,8 +52,8 @@ def test_port_imports_neither_jax_nor_media_tpu():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
-# The modules of the public API, the scalar oracle, the HEVC slot and the
-# device pool.
+# The modules of the public API, the scalar oracle, the HEVC slot, the
+# tiles and the pool, and the GOP dispatchers.
 API_MODULES = [
     "media_tpu_torch.core.log", "media_tpu_torch.core.params",
     "media_tpu_torch.api", "media_tpu_torch.api.errors",
@@ -63,6 +63,8 @@ API_MODULES = [
     "media_tpu_torch.hevc.syntax", "media_tpu_torch.hevc.codec",
     "media_tpu_torch.hevc.ref_decoder", "media_tpu_torch.parallel",
     "media_tpu_torch.parallel.sharding",
+    "media_tpu_torch.parallel.gop_dispatch",
+    "media_tpu_torch.parallel.gop_dispatch_mp",
 ]
 
 # torch first (it is no foreign module), then one forked child per module:

@@ -9,10 +9,18 @@ and media_tpu's ReferenceDecoder on the port's multi-slice stream. One JAX
 session per configuration; the JAX side deblocks one wave per scan step
 (same bytes, smaller programs). Tolerance 0; the host rate loop's floats
 1e-9 relative (Python floats on both sides).
+
+The port's ShardedEncoderSession (parallel/sharding.py: one MB-row tile a
+slice, each on its own device of a list) at constant QP is held to the
+same JAX sessions: over three CPU "devices" at 64x48 (one MB row a tile)
+against the three-slice, slice-local-deblocking session whose AUs the
+module caches by configuration (no JAX compile of its own), through the
+device packer and through the overflow route; and over two at 64x64.
 """
 
 import numpy as np
 import pytest
+import torch
 
 import chip_smoke as cs
 from media_tpu.pipeline.codec import EncoderConfig as JaxConfig
@@ -21,6 +29,7 @@ from media_tpu.ref.decoder import ReferenceDecoder
 from media_tpu_torch.core import nal as tnal
 from media_tpu_torch.core import syntax as tsyn
 from media_tpu_torch.core.bitstream import BitReader
+from media_tpu_torch.parallel.sharding import ShardedEncoderSession
 from media_tpu_torch.pipeline.codec import EncoderConfig, EncoderSession
 from media_tpu_torch.utils import yuv
 
@@ -52,6 +61,8 @@ def clip(n, seed=0):
 
 
 FRAMES = clip(N)
+# The JAX sessions' AUs by configuration, for the sharded cases.
+_JAX_AUS: dict = {}
 
 
 def cfg(cls, **kw):
@@ -62,6 +73,14 @@ def encode(cls, kw, **session_kw):
     s = cls(cfg(JaxConfig if cls is JaxSession else EncoderConfig, **kw),
             **session_kw)
     return s, [s.encode_frame(FRAMES[0])] + s.encode_frames(FRAMES[1:])
+
+
+def jax_aus(kw) -> list:
+    """The JAX session's AUs of a configuration, computed once a module."""
+    key = tuple(sorted(kw.items()))
+    if key not in _JAX_AUS:
+        _JAX_AUS[key] = encode(JaxSession, kw)[1]
+    return _JAX_AUS[key]
 
 
 def slice_headers(aus):
@@ -92,6 +111,7 @@ def test_multislice_session_matches_jax(num_slices, cabac, across):
     kw = dict(num_slices=num_slices, cabac=cabac,
               deblock_across_slices=across, entropy_mode="host")
     js, want = encode(JaxSession, kw)
+    _JAX_AUS[tuple(sorted(kw.items()))] = want
     for coder in ("native", "python"):
         s, got = encode(EncoderSession, kw, device="cpu", host_coder=coder)
         assert got == want, coder
@@ -102,6 +122,54 @@ def test_multislice_session_matches_jax(num_slices, cabac, across):
     idc = 0 if across else 2
     for heads in slice_headers(got):
         assert heads == [(r0 * (W // 16), idc) for r0, _ in s.slice_rows]
+
+
+# The configuration a sharded session over n tiles codes (sharding.py).
+SHARDED3 = dict(num_slices=3, cabac=False, deblock_across_slices=False,
+                entropy_mode="host")
+
+
+@pytest.mark.parametrize("overflow", [False, True])
+def test_sharded_session_equals_the_jax_multislice_session(overflow):
+    """Three tiles on three CPU "devices" at 64x48: the AUs of the JAX
+    three-slice session with slice-local deblocking, through the tiles'
+    device packers, and through the constant-QP overflow route (a per-tile
+    cap too small for any P slice sends each P run to the base session's
+    single-device host path)."""
+    s = ShardedEncoderSession(cfg(EncoderConfig), devices=["cpu"] * 3)
+    assert s.mesh == (torch.device("cpu"),) * 3 and s.rows_local == 1
+    assert (s.cfg.num_slices, s.cfg.deblock_across_slices,
+            s.cfg.entropy_mode) == (3, False, "host")
+    host_runs = []
+    if overflow:
+        s.cap_local = 0
+        inner = s.base._frame_encoder.encode_pframes_batch
+
+        def host_path(*a, **kw):
+            host_runs.append(len(a[0]))
+            return inner(*a, **kw)
+
+        s.base._frame_encoder.encode_pframes_batch = host_path
+    got = [s.encode_frame(FRAMES[0])] + s.encode_frames(FRAMES[1:])
+    assert got == jax_aus(SHARDED3)
+    assert host_runs == ([N - 1] if overflow else [])
+    rs, _ = encode(EncoderSession, SHARDED3, device="cpu")
+    for a, b in zip(s.recon, rs.recon):
+        assert torch.equal(a, b)
+
+
+def test_two_tile_sharded_session_equals_the_jax_two_slice_session():
+    w, h = 64, 64
+    bufs = cs.clip_i420(w, h, N, seed=5)[0]
+    kw = dict(width=w, height=h, qp=QP, gop_size=30)
+    s = ShardedEncoderSession(EncoderConfig(**kw), devices=["cpu"] * 2)
+    got = [s.encode_frame(bufs[0])] + s.encode_frames(bufs[1:])
+    js = JaxSession(JaxConfig(num_slices=2, deblock_across_slices=False,
+                              entropy_mode="host", **kw))
+    assert got == [js.encode_frame(bufs[0])] + js.encode_frames(bufs[1:])
+    assert [r0 for r0, _ in s.base.slice_rows] == [0, 2]
+    for a, b in zip(s.recon, js.recon):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
 
 
 def test_slice_bounds_round_as_python_does():

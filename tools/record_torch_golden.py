@@ -23,15 +23,21 @@ frame, and the digest of every payload that VideoDecoder hands out for the
 stream; then down chip_smoke.ORACLE_RUNS (five 176x144 streams at constant
 QP: IDR + 4 P, the same with I_4x4, four slices, the B-GOP, lossless),
 recording per AU a digest and a size and the digest of every picture the
-scalar ReferenceDecoder decodes. It writes the sha256 of the
+scalar ReferenceDecoder decodes; then chip_smoke.SHARDED_RUN (CBR with
+CAVLC and adaptive_qp over four row tiles, IDR + 4 P) through the JAX
+ShardedEncoderSession on four virtual CPU devices (the script sets
+XLA_FLAGS=--xla_force_host_platform_device_count=4 before JAX loads),
+recording per AU a digest and a size, per P frame the tiles' bits and the
+QP, and the final rate state. It writes the sha256 of the
 input clip, of the access units and of every decoded picture's planes to
 media_tpu_torch/golden_1080p.json.
 
     JAX_PLATFORMS=cpu python tools/record_torch_golden.py
     JAX_PLATFORMS=cpu python tools/record_torch_golden.py --only bgop,lossless
+    JAX_PLATFORMS=cpu python tools/record_torch_golden.py --only sharded4_cbr_aq
 
 --only name[,name] records the named runs of RATE_RUNS, TOOL_RUNS,
-API_RUNS and ORACLE_RUNS into
+API_RUNS, ORACLE_RUNS and SHARDED_RUN into
 the existing file and leaves every other entry as it is.
 
 A full run takes some tens of minutes of CPU time (most of it XLA compiling
@@ -49,6 +55,13 @@ import time
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
+
+# chip_smoke.SHARDED_RUN runs the JAX ShardedEncoderSession over four
+# virtual CPU devices (chip_smoke.SHARDED_TILES); set before JAX loads.
+_flags = os.environ.get("XLA_FLAGS", "")
+if "xla_force_host_platform_device_count" not in _flags:
+    os.environ["XLA_FLAGS"] = (
+        _flags + " --xla_force_host_platform_device_count=4").strip()
 
 OUT = os.path.join(ROOT, "media_tpu_torch", "golden_1080p.json")
 
@@ -115,6 +128,28 @@ def record_run(cs, bufs, name: str) -> dict:
     return rec
 
 
+def record_sharded_run(cs, bufs) -> dict:
+    """chip_smoke.SHARDED_RUN through the JAX package's
+    ShardedEncoderSession over chip_smoke.SHARDED_TILES virtual CPU
+    devices: per AU a digest and a size, per P frame the tiles' bits and
+    the QP, and the final rate state."""
+    import jax
+
+    from media_tpu.parallel.sharding import ShardedEncoderSession
+    from media_tpu.pipeline.codec import EncoderConfig
+
+    devices = jax.devices()[: cs.SHARDED_TILES]
+    if len(devices) != cs.SHARDED_TILES:
+        raise SystemExit(f"{cs.SHARDED_RUN}: {len(devices)} JAX devices; "
+                         "XLA_FLAGS was set before this script")
+    sess = ShardedEncoderSession(EncoderConfig(
+        width=cs.WIDTH, height=cs.HEIGHT, qp=cs.QP, gop_size=300,
+        **cs.SHARDED_FIELDS), devices=devices)
+    run = cs.drive_sharded_run(sess, bufs, cs.N_SHARDED)
+    return {"n": cs.N_SHARDED, "tiles": cs.SHARDED_TILES,
+            **cs.sharded_record(sess, run["aus"], run["log"])}
+
+
 def record_api_run(cs, name: str) -> dict:
     """One run of chip_smoke.API_RUNS through the JAX package's public API:
     the encoder lifecycle on the run's clip, then its stream through the
@@ -149,7 +184,8 @@ def main() -> None:
     import chip_smoke as cs
 
     t0 = time.perf_counter()
-    names = [*cs.RATE_RUNS, *cs.TOOL_RUNS, *cs.API_RUNS, *cs.ORACLE_RUNS]
+    names = [*cs.RATE_RUNS, *cs.TOOL_RUNS, *cs.API_RUNS, *cs.ORACLE_RUNS,
+             cs.SHARDED_RUN]
     only = None
     if "--only" in sys.argv[1:]:
         only = sys.argv[sys.argv.index("--only") + 1].split(",")
@@ -172,6 +208,8 @@ def main() -> None:
             rec[name] = record_api_run(cs, name)
         elif name in cs.ORACLE_RUNS:
             rec[name] = record_oracle_run(cs, name)
+        elif name == cs.SHARDED_RUN:
+            rec[name] = record_sharded_run(cs, bufs)
         else:
             rec[name] = record_run(cs, bufs, name)
         print(f"{name}: {time.perf_counter() - t0:.1f} s", flush=True)
