@@ -1,6 +1,9 @@
 # Build/packaging layer (the reference's build.sh/Android.mk analog).
 #
 #   make native   - build the C++ CAVLC packer + the libVideoCodec C ABI
+#   make native-torch   - build the PyTorch port's host library, its
+#                         libVideoCodec C ABI and the capi_drive C caller
+#   make sanitize-torch - ASan/UBSan pass over the port's C++ coders
 #   make test     - run the full test suite (CPU, virtual 8-device mesh)
 #   make bench    - run the single-chip throughput benchmark
 #   make demo     - end-to-end encode/decode round-trip demo
@@ -8,7 +11,7 @@
 
 PY ?= python
 
-.PHONY: native test smoke sanitize bench demo clean
+.PHONY: native native-torch test smoke sanitize sanitize-torch bench demo clean
 
 # Smoke tier: the fast subset (unit + oracle tests; excludes the slow
 # integration/conformance markers). Target budget: ~5 min on 2 CPUs.
@@ -25,10 +28,28 @@ sanitize: csrc/cavlc_tables.inc
 csrc/cavlc_tables.inc:
 	$(PY) csrc/gen_tables.py
 
+# The same harness over the port's copies of the coders and its generated
+# tables (media_tpu_torch/csrc, media_tpu_torch/native/gen_tables.py).
+TORCH_SAN := media_tpu_torch/csrc/build/sanitize
+sanitize-torch:
+	mkdir -p $(TORCH_SAN)
+	$(PY) -m media_tpu_torch.native.gen_tables $(TORCH_SAN)/cavlc_tables.inc
+	g++ -std=c++17 -O1 -g -fsanitize=address,undefined -I$(TORCH_SAN) \
+	  media_tpu_torch/csrc/cavlc_pack.cpp media_tpu_torch/csrc/cabac_pack.cpp \
+	  media_tpu_torch/csrc/cavlc_parse.cpp media_tpu_torch/csrc/cabac_parse.cpp \
+	  media_tpu_torch/csrc/sanitize_test.cpp -o $(TORCH_SAN)/sanitize_test
+	./$(TORCH_SAN)/sanitize_test
+
 native:
 	$(PY) -c "from media_tpu import native; \
 	  print('packer:', native._build_lib()); \
 	  print('c-abi: ', native.build_capi())"
+
+native-torch:
+	$(PY) -c "from media_tpu_torch import native; \
+	  print('host:      ', native.build()[0]); \
+	  print('c-abi:     ', native.build_capi()[0]); \
+	  print('capi_drive:', native.build_capi_drive()[0])"
 
 test:
 	$(PY) -m pytest tests/ -q

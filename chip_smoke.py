@@ -107,7 +107,37 @@ Phases, one line each; nothing is caught, any failure exits non-zero:
      2 threads, dispatch_multiprocess with 1, 2 and 4 spawned processes (a
      gloo process group at 4), MPS off; every AU list equal to the
      sequential one; fps of the warm window, scaling_efficiency,
-     dispatch_overhead, prewarm_s.
+     dispatch_overhead, prewarm_s;
+ 18. the C ABI (media_tpu_torch/csrc/api, libVideoCodec, built with g++
+     against this interpreter's libpython; runs right after phase 13): (a)
+     phase 13's two runs through the C functions, the library loaded into
+     this process with ctypes.CDLL: CreateVideoEncoder() (void, so cuda),
+     every property through MtpuEncoderSetParam under its key string,
+     EncodeOneFrame per frame; the stream back through CreateVideoDecoder()
+     / SendStreamData in 65536-byte pieces / RetrieveFrameData into a
+     w*h*3/2 buffer (made anew for the geometry BAD_PIC_SIZE reports), a C
+     event callback; AUs, codes, decoder codes and payloads the golden's,
+     events phase 13's, two whole-frame launches a picture; P fps through
+     EncodeOneFrame beside phase 13's, both IDRs' ms, decode fps; (b)
+     api_main_1080p through capi_drive (csrc/api/capi_drive.c, a C program
+     linked to the library) in a child process with --device cuda and this
+     process's sys.path as PYTHONPATH: AUs and codes the golden's, its wall
+     time and start-up apart from the encoding; (c) the C hop alone: one
+     encoder through encode_one_frame and one through EncodeOneFrame at
+     api_main_1080p's properties without its reset take the IDR and 16 P
+     frames of the clip in turns (Python, C, C, Python, ...): AUs equal,
+     the first six the golden's, the median ms of a P frame each way and
+     of their difference per frame;
+ 19. libavcodec on the card's host (media_tpu_torch/testing/avref.py, the
+     shim built with gcc against the system libavcodec; runs after phase
+     18): phase 5's nine AUs (the route-frame decoder of phase 6 decodes
+     pictures 5-8 on) and phase 9's seventeen through ffmpeg's H.264
+     decoder: every AU a picture of 1920x1080, the first nine of each equal
+     to the port's decoded pictures cropped to 1920x1080, whose digests are
+     the golden's, the last equal to the encoder's last recon; ffmpeg's ms
+     a picture. Where the shim does not build because libavcodec's header
+     or library is missing, the phase prints "[avref] unavailable" with the
+     compiler's message and the run goes on; any other failure fails it.
 Phases 9 to 16 hold every AU and decoded picture to the golden as well.
 Phase 3 also runs route wave in two threads, 20 pictures each.
 The second-to-last line is the kernels' JSON record; the last line is
@@ -119,8 +149,10 @@ from __future__ import annotations
 import hashlib
 import json
 import os
+import re
 import subprocess
 import sys
+import sysconfig
 import time
 
 import numpy as np
@@ -261,6 +293,12 @@ API_RUNS = {
                   "KEY_HW_HEIGHT": "240", "KEY_BITRATE": "1000000"}, 3, {},
                  (320, 240)),
 }
+
+
+# The H.264 runs of API_RUNS that phases 13 and 18 drive at full width, each
+# with the frame of its second IDR and what makes it one.
+API_IDRS = (("api_default", 5, "forced IDR"),
+            ("api_main_1080p", 6, "IDR of the reset to 6 Mbit/s"))
 
 
 def _host(x):
@@ -540,6 +578,53 @@ def drive_api_encode(api, params, name: str, bufs, sync=lambda: None,
     return out
 
 
+# Codes of the decoder half that the drain loop acts on (DecoderRetCode,
+# the reference's values, in both packages and in the C ABI).
+DEC_SUCCESS, DEC_WRITE_OVERFLOW, DEC_READ_UNDERFLOW = 0, 11, 12
+DEC_BAD_PIC_SIZE, DEC_EOS = 13, 14
+
+
+def feed_and_drain(aus, send, retrieve, sync=lambda: None):
+    """The stream in API_FEED-byte pieces through send(piece) -> code, then
+    the end-of-stream marker b"", draining with retrieve() -> (code,
+    payload) after every piece (draining and feeding again on
+    WRITE_OVERFLOW, retrying on BAD_PIC_SIZE) until EOS. Returns (every
+    send's code, the payloads, seconds on the host clock between calls of
+    `sync`)."""
+    codes, payloads = [], []
+
+    def drain(until_eos: bool) -> None:
+        while True:
+            code, payload = retrieve()
+            if code == DEC_SUCCESS:
+                payloads.append(payload)
+            elif code == DEC_EOS and until_eos:
+                return
+            elif code == DEC_READ_UNDERFLOW and not until_eos:
+                return
+            elif code != DEC_BAD_PIC_SIZE:
+                raise AssertionError(f"retrieve_frame_data: {code!r}")
+
+    def feed(piece: bytes) -> None:
+        while True:
+            code = send(piece)
+            codes.append(code)
+            if code != DEC_WRITE_OVERFLOW:
+                return
+            drain(False)
+
+    stream = b"".join(aus)
+    sync()
+    t0 = time.perf_counter()
+    for i in range(0, len(stream), API_FEED):
+        feed(stream[i : i + API_FEED])
+        drain(False)
+    feed(b"")
+    drain(True)
+    sync()
+    return codes, payloads, time.perf_counter() - t0
+
+
 def drive_api_decode(api, aus, codec_format: int = 0, sync=lambda: None,
                      **factory_kw) -> dict:
     """A stream through create_video_decoder -> create_decoder ->
@@ -550,7 +635,6 @@ def drive_api_decode(api, aus, codec_format: int = 0, sync=lambda: None,
     "codes" (every send's and the lifecycle calls'), "payloads", "events",
     "fallbacks" (the chunks the decoder handed to the scalar oracle) and
     "s" on the host clock between calls of `sync`."""
-    D = api.DecoderRetCode
     dec = api.create_video_decoder(**factory_kw)
     out = {"codes": [dec.create_decoder(codec_format), dec.init_decoder()],
            "payloads": [], "events": [], "fallbacks": 0}
@@ -563,40 +647,11 @@ def drive_api_decode(api, aus, codec_format: int = 0, sync=lambda: None,
         return inner(chunk)
 
     dec._fallback_to_reference = fallback
-
-    def drain(until_eos: bool) -> None:
-        while True:
-            code, payload, _info = dec.retrieve_frame_data()
-            if code == D.VIDEO_DECODER_SUCCESS:
-                out["payloads"].append(payload)
-            elif code == D.VIDEO_DECODER_EOS and until_eos:
-                return
-            elif code == D.VIDEO_DECODER_READ_UNDERFLOW and not until_eos:
-                return
-            elif code != D.VIDEO_DECODER_BAD_PIC_SIZE:
-                raise AssertionError(f"retrieve_frame_data: {code!r}")
-
-    def send(piece: bytes) -> None:
-        while True:
-            code = dec.send_stream_data(piece)
-            out["codes"].append(code)
-            if code != D.VIDEO_DECODER_WRITE_OVERFLOW:
-                return
-            drain(False)
-
-    stream = b"".join(aus)
-    sync()
-    t0 = time.perf_counter()
-    for i in range(0, len(stream), API_FEED):
-        send(stream[i : i + API_FEED])
-        drain(False)
-    send(b"")
-    drain(True)
-    sync()
-    out["s"] = time.perf_counter() - t0
-    out["codes"] += [dec.stop_decoder(), dec.destroy_decoder()]
-    out["codes"] = [int(c) for c in out["codes"]
-                    if c != D.VIDEO_DECODER_WRITE_OVERFLOW]
+    codes, out["payloads"], out["s"] = feed_and_drain(
+        aus, dec.send_stream_data, lambda: dec.retrieve_frame_data()[:2],
+        sync)
+    out["codes"] += codes + [dec.stop_decoder(), dec.destroy_decoder()]
+    out["codes"] = [int(c) for c in out["codes"] if c != DEC_WRITE_OVERFLOW]
     return out
 
 
@@ -615,11 +670,151 @@ def api_record(enc_run, dec_run) -> dict:
             "fallbacks": dec_run["fallbacks"]}
 
 
+def api_speeds(enc_run, dec_run, idr2: int) -> dict:
+    """An API run's host-clock speeds: "p_fps" (the frames that are not
+    IDRs, one a call), "idr_ms" (frame 0 and frame idr2), "decode_fps"."""
+    ms = enc_run["ms"]
+    p_ms = [t for i, t in enumerate(ms) if i not in (0, idr2)]
+    return {"p_fps": len(p_ms) / (sum(p_ms) / 1e3),
+            "idr_ms": (ms[0], ms[idr2]),
+            "decode_fps": len(dec_run["payloads"]) / dec_run["s"]}
+
+
+def drive_capi_encode(lib, enc, params, run, bufs, sync=lambda: None) -> dict:
+    """An API_RUNS entry through the C ABI on the encoder handle `enc` of
+    `lib` (a library bound by media_tpu_torch.native.bind_capi): each
+    property through MtpuEncoderSetParam under its string key in `params`,
+    before InitEncoder or before the frame that names it; InitEncoder ->
+    StartEncoder -> EncodeOneFrame per frame -> StopEncoder ->
+    DestroyVideoEncoder. Returns "codes" (every call's after the factory),
+    "aus" and "ms" per frame on the host clock between calls of `sync`."""
+    import ctypes
+
+    props, n, events, _geometry = run
+    if not enc:
+        raise AssertionError("the C encoder factory returned NULL")
+
+    def set_props(items) -> None:
+        for k, v in items:
+            code = lib.MtpuEncoderSetParam(enc, getattr(params, k).encode(),
+                                           str(v).encode())
+            if code:
+                raise AssertionError(f"MtpuEncoderSetParam({k}): {code:#x}")
+
+    set_props(props.items())
+    out = {"codes": [lib.InitEncoder(enc), lib.StartEncoder(enc)], "aus": [],
+           "ms": []}
+    ptr = ctypes.POINTER(ctypes.c_uint8)()
+    n_out = ctypes.c_uint32()
+    for i in range(n):
+        set_props(events.get(i, {}).items())
+        sync()
+        t0 = time.perf_counter()
+        code = lib.EncodeOneFrame(enc, bufs[i], len(bufs[i]),
+                                  ctypes.byref(ptr), ctypes.byref(n_out))
+        sync()
+        out["ms"].append((time.perf_counter() - t0) * 1e3)
+        out["codes"].append(code)
+        out["aus"].append(ctypes.string_at(ptr, n_out.value) if code == 0
+                          else b"")
+    out["codes"] += [lib.StopEncoder(enc), lib.DestroyVideoEncoder(enc)]
+    return out
+
+
+def drive_capi_decode(lib, dec, aus, geometry, sync=lambda: None) -> dict:
+    """A stream through the C ABI's decoder half on the handle `dec` of
+    `lib`: MtpuCreateDecoder(H.264) -> InitDecoder -> SetDecoderCallbacks ->
+    StartDecoder, fed in API_FEED-byte pieces with SendStreamData and then
+    the zero-length end of stream, drained with RetrieveFrameData into a
+    buffer of w*h*3/2 bytes by feed_and_drain, as drive_api_decode drains
+    (on BAD_PIC_SIZE the buffer is made anew for the geometry the call
+    reports).
+    Returns "codes" (as drive_api_decode's), "payloads", "events" (event,
+    width, height as the C callback received them) and "s"."""
+    import ctypes
+
+    from media_tpu_torch.native import EVENT_CB
+
+    if not dec:
+        raise AssertionError("the C decoder factory returned NULL")
+    events = []
+
+    @EVENT_CB
+    def on_event(ev, info, _user):
+        events.append((int(ev), info.contents.width, info.contents.height))
+
+    out = {"codes": [lib.MtpuCreateDecoder(dec, 0), lib.InitDecoder(dec)],
+           "events": events}
+    if lib.SetDecoderCallbacks(dec, on_event, None):
+        raise AssertionError("SetDecoderCallbacks failed")
+    out["codes"].append(lib.StartDecoder(dec))
+    w, h = geometry
+    buf = [ctypes.create_string_buffer(w * h * 3 // 2)]
+    filled, ow, oh = ctypes.c_uint32(), ctypes.c_uint32(), ctypes.c_uint32()
+
+    def retrieve():
+        code = lib.RetrieveFrameData(dec, buf[0], len(buf[0]),
+                                     ctypes.byref(filled), ctypes.byref(ow),
+                                     ctypes.byref(oh))
+        if code == DEC_BAD_PIC_SIZE:
+            buf[0] = ctypes.create_string_buffer(ow.value * oh.value * 3 // 2)
+        return code, buf[0].raw[: filled.value]
+
+    codes, out["payloads"], out["s"] = feed_and_drain(
+        aus, lambda piece: lib.SendStreamData(dec, piece, len(piece)),
+        retrieve, sync)
+    out["codes"] += codes + [lib.StopDecoder(dec),
+                             lib.DestroyVideoDecoder(dec)]
+    out["codes"] = [c for c in out["codes"] if c != DEC_WRITE_OVERFLOW]
+    return out
+
+
+def read_capi_drive_output(path: str) -> tuple[list, list]:
+    """The records capi_drive writes: (every code, the AUs of the
+    EncodeOneFrame calls)."""
+    import struct
+
+    with open(path, "rb") as f:
+        data = f.read()
+    codes, payloads, i = [], [], 0
+    while i < len(data):
+        code, n = struct.unpack_from("<II", data, i)
+        codes.append(code)
+        payloads.append(data[i + 8 : i + 8 + n])
+        i += 8 + n
+    return codes, payloads[2:-2]
+
+
+def capi_drive_args(params, run) -> list:
+    """capi_drive's --set and --at arguments for an API_RUNS entry."""
+    props, _n, events, (w, h) = run
+    args = ["--width", str(w), "--height", str(h)]
+    for k, v in props.items():
+        args += ["--set", f"{getattr(params, k)}={v}"]
+    for i, items in sorted(events.items()):
+        for k, v in items.items():
+            args += ["--at", f"{i}:{getattr(params, k)}={v}"]
+    return args
+
+
+def child_env() -> dict:
+    """The environment of a standalone C host of the port's library: its
+    embedded interpreter computes its prefix from the program's location,
+    not from this interpreter's (a venv's) site, so it gets this process's
+    sys.path as PYTHONPATH, the repo root first."""
+    paths = [ROOT] + [p for p in sys.path if p and p != ROOT]
+    return dict(os.environ, PYTHONPATH=os.pathsep.join(paths))
+
+
 def planes_sha(frame) -> str:
     """sha256 over the Y, U, V planes of a decoded picture."""
+    return _sha_planes((frame.y, frame.u, frame.v))
+
+
+def _sha_planes(planes) -> str:
+    """sha256 over a picture's Y, U, V planes, as numpy arrays."""
     return hashlib.sha256(b"".join(
-        np.ascontiguousarray(p).tobytes()
-        for p in (frame.y, frame.u, frame.v))).hexdigest()
+        np.ascontiguousarray(p).tobytes() for p in planes)).hexdigest()
 
 
 def _psnr(a, b) -> float:
@@ -712,7 +907,9 @@ def phase_environment():
     print(smi)
     print(f"[env] torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]} device "
-          f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+          f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
+          + ", ".join(f"{k} {sysconfig.get_config_var(k)}" for k in (
+              "Py_ENABLE_SHARED", "LDLIBRARY", "LIBDIR")))
     return smi
 
 
@@ -1223,7 +1420,8 @@ def _stage_split(sess, frame_buf, smi: str):
 
 def phase_main_path(smi: str, golden: dict, bufs):
     """The constant-QP encode path. Returns (deblock launches, the IDR + P AUs of the
-    first run, the recon after the IDR, the recon after that run)."""
+    first run, the recon after the IDR, the recon after that run, the staged
+    AUs, the last recon as numpy planes)."""
     import torch
 
     from media_tpu_torch.ops.deblock_wave import deblock_wave
@@ -1301,7 +1499,7 @@ def phase_main_path(smi: str, golden: dict, bufs):
     if out[0] != out[1]:
         raise AssertionError("64x48 AUs differ between cuda and cpu")
     print("[main] 64x48 IDR + 4 P: cuda AUs == cpu AUs")
-    return launches, aus, recon_idr, recon_run
+    return launches, aus, recon_idr, recon_run, staged, recon
 
 
 def _split(timings, idr: bool) -> str:
@@ -1315,7 +1513,8 @@ def _split(timings, idr: bool) -> str:
 
 def phase_decode_path(smi: str, golden: dict, aus, recon_idr, recon_run):
     """The decode path through both deblock routes. Returns the launches of
-    (the whole-frame kernel, the wave-step kernel)."""
+    (the whole-frame kernel, the wave-step kernel), and the route-frame
+    decoder with its pictures, which phase 19 goes on with."""
     import torch
 
     from media_tpu_torch.ops.deblock_pallas import deblock_wave_step
@@ -1416,7 +1615,7 @@ def phase_decode_path(smi: str, golden: dict, aus, recon_idr, recon_run):
         equal_planes(out[0][-1], s.recon, "64x48 decode vs encoder recon")
     print("[decode] 64x48 IDR + 4 P: cuda planes == cpu planes == encoder "
           "recon, both routes")
-    return frame_launches, step_launches
+    return frame_launches, step_launches, dec, frames
 
 
 # The golden's rate floats come from XLA on a CPU, the run's from CUDA: log2
@@ -1619,7 +1818,7 @@ def phase_rate_path(smi: str, golden: dict, bufs, names):
 def phase_cabac_decode(smi: str, want, aus, recon_idr, recon_run,
                        what: str = "CABAC"):
     """TpuDecoder on a CBR + CABAC stream, against the recorded digests
-    `want`. Returns the whole-frame kernel's launches."""
+    `want`. Returns the whole-frame kernel's launches and the pictures."""
     import torch
 
     from media_tpu_torch import native
@@ -1661,7 +1860,7 @@ def phase_cabac_decode(smi: str, want, aus, recon_idr, recon_run,
           f"stage synchronised; C++ CABAC parsers) | {smi}")
     print(f"[decode] {what} ms per picture: {_split(dec.timings, True)}; "
           f"{_split(dec.timings, False)} | {smi}")
-    return launches
+    return launches, frames
 
 
 def _i4_idr_split(smi: str, bufs) -> None:
@@ -2008,10 +2207,11 @@ def _check_api_record(name: str, enc_run, dec_run, want: dict) -> None:
                              "scalar oracle")
 
 
-def phase_api(smi: str, golden: dict) -> int:
+def phase_api(smi: str, golden: dict):
     """The public API at full width: VideoEncoder at the shipped property
     defaults and at 1080p on main, each stream back through VideoDecoder.
-    Returns the whole-frame kernel's launches."""
+    Returns (the whole-frame kernel's launches, {run name: its decoder's
+    events, P fps, both IDRs' ms and decode fps}) for phase 18."""
     import torch
 
     from media_tpu_torch import api
@@ -2021,9 +2221,8 @@ def phase_api(smi: str, golden: dict) -> int:
 
     sync = torch.cuda.synchronize
     launches = 0
-    for name, idr2, what in (
-            ("api_default", 5, "forced IDR"),
-            ("api_main_1080p", 6, "IDR of the reset to 6 Mbit/s")):
+    runs = {}
+    for name, idr2, what in API_IDRS:
         bufs = api_clip(name)
         w, h = API_RUNS[name][3]
         # The media log's warning and error lines, as (level, tag, message).
@@ -2047,8 +2246,9 @@ def phase_api(smi: str, golden: dict) -> int:
             raise AssertionError(f"{name}: {n_launch} whole-frame launches "
                                  f"for {n} pictures encoded and decoded")
         launches += n_launch
+        runs[name] = api_speeds(enc_run, dec_run, idr2)
+        runs[name]["events"] = dec_run["events"]
         ms = enc_run["ms"]
-        p_ms = [t for i, t in enumerate(ms) if i not in (0, idr2)]
         st = enc_run["stats"]
         print(f"[api] {name} {w}x{h}: {n} frames through encode_one_frame, "
               f"every code SUCCESS, AUs and QPs == JAX golden (sizes "
@@ -2058,12 +2258,312 @@ def phase_api(smi: str, golden: dict) -> int:
               f"golden, no fallback, no warning or error in the media log; "
               f"deblock launches {n_launch} | {smi}")
         print(f"[api] {name}: IDR {ms[0]:.1f} ms, {what} {ms[idr2]:.1f} ms, "
-              f"P frames {len(p_ms) / (sum(p_ms) / 1e3):.3f} fps "
+              f"P frames {runs[name]['p_fps']:.3f} fps "
               f"(encode_one_frame, one frame a call), decode "
-              f"{len(dec_run['payloads']) / dec_run['s']:.3f} fps through the "
-              f"API | {smi}")
+              f"{runs[name]['decode_fps']:.3f} fps through the API | {smi}")
         print(f"[api] {name} get_encoder_statistics: "
               f"{json.dumps({k: v for k, v in st.items() if k != 'statistics_ts'})}")
+    return launches, runs
+
+
+def _check_capi_record(name: str, enc_run, dec_run, want: dict) -> None:
+    """What a run through the C ABI is held to, exactly: every code of
+    both halves SUCCESS and the golden's, each AU's digest and size, each
+    payload's digest."""
+    if enc_run["codes"] != want["codes"] or any(enc_run["codes"]):
+        raise AssertionError(f"{name} through C: encoder codes "
+                             f"{enc_run['codes']}")
+    if len(enc_run["aus"]) != len(want["au_sha256"]):
+        raise AssertionError(f"{name} through C: {len(enc_run['aus'])} AUs")
+    _first_difference(f"{name} through C", enc_run["aus"], want["au_sha256"],
+                      want["au_bytes"])
+    if dec_run["codes"] != want["decode_codes"]:
+        raise AssertionError(f"{name} through C: decoder codes "
+                             f"{dec_run['codes']}")
+    got = [hashlib.sha256(p).hexdigest() for p in dec_run["payloads"]]
+    if got != want["decoded_sha256"]:
+        raise AssertionError(f"{name} through C: decoded payloads differ "
+                             f"from the JAX VideoDecoder's ({len(got)} "
+                             f"against {len(want['decoded_sha256'])})")
+
+
+def phase_capi(smi: str, golden: dict, api_runs: dict, clip) -> int:
+    """The C ABI on the card: (a) phase 13's two runs through the C
+    functions of the port's libVideoCodec, loaded into this process, with
+    the void factories (so "cuda"); (b) api_main_1080p through capi_drive,
+    a C program, in a child process; (c) the C hop alone, P frames of
+    `clip` through both routes in turns. Returns the whole-frame
+    kernel's launches of (a) and (c)."""
+    import tempfile
+
+    import torch
+
+    from media_tpu_torch import native
+    from media_tpu_torch.api import decoder_api
+    from media_tpu_torch.core import log as media_log
+    from media_tpu_torch.core import params
+    from media_tpu_torch.ops.deblock_wave import deblock_wave
+
+    path, secs = native.build_capi()
+    prog, secs_drive = native.build_capi_drive()
+    lib = native.bind_capi(path)
+    print(f"[capi] {os.path.relpath(path, ROOT)} g++ {secs:.2f} s, "
+          f"{os.path.relpath(prog, ROOT)} gcc {secs_drive:.2f} s")
+    sync = torch.cuda.synchronize
+    # ---- (a) in process. The bridge runs in this interpreter, so the
+    # decoder's hand-overs to the scalar oracle are counted on its class.
+    fallbacks = []
+    inner = decoder_api.VideoDecoder._fallback_to_reference
+
+    def counted(self, chunk):
+        fallbacks.append(len(chunk))
+        return inner(self, chunk)
+
+    decoder_api.VideoDecoder._fallback_to_reference = counted
+    launches = 0
+    try:
+        for name, idr2, what in API_IDRS:
+            bufs = api_clip(name)
+            w, h = API_RUNS[name][3]
+            lines: list = []
+            media_log.set_media_log_callback(
+                lambda level, tag, msg: level >= media_log.LOG_WARN
+                and lines.append((level, tag, msg)))
+            deblock_wave.launches = 0
+            enc_run = drive_capi_encode(lib, lib.CreateVideoEncoder(), params,
+                                        API_RUNS[name], bufs, sync)
+            dec_run = drive_capi_decode(lib, lib.CreateVideoDecoder(),
+                                        enc_run["aus"], (w, h), sync)
+            n_launch = deblock_wave.launches
+            media_log.set_media_log_callback(None)
+            media_log.set_log_level(media_log.LOG_INFO)
+            _check_capi_record(name, enc_run, dec_run, golden[name])
+            if fallbacks or lines:
+                raise AssertionError(f"{name} through C: {len(fallbacks)} "
+                                     f"hand-overs to the oracle, media log "
+                                     f"{lines}")
+            events = [e[0] for e in dec_run["events"]]
+            if events != api_runs[name]["events"]:
+                raise AssertionError(f"{name} through C: events "
+                                     f"{dec_run['events']} against phase "
+                                     f"13's {api_runs[name]['events']}")
+            n = len(enc_run["aus"])
+            if n_launch != 2 * n:
+                raise AssertionError(f"{name} through C: {n_launch} "
+                                     f"whole-frame launches for {n} "
+                                     "pictures encoded and decoded")
+            launches += n_launch
+            got, ref = api_speeds(enc_run, dec_run, idr2), api_runs[name]
+            print(f"[capi] {name} {w}x{h} through the C ABI in process "
+                  f"(CreateVideoEncoder / CreateVideoDecoder: cuda): {n} "
+                  f"frames through EncodeOneFrame, every code SUCCESS, AUs "
+                  f"== JAX golden; the stream through SendStreamData in "
+                  f"{API_FEED}-byte pieces and RetrieveFrameData: {n} "
+                  f"payloads == JAX golden, decoder codes == golden, events "
+                  f"{dec_run['events']} == phase 13's, no hand-over, no "
+                  f"warning or error in the media log; deblock launches "
+                  f"{n_launch} | {smi}")
+            print(f"[capi] {name}: P frames {got['p_fps']:.3f} fps through "
+                  f"EncodeOneFrame against {ref['p_fps']:.3f} through "
+                  f"encode_one_frame (phase 13); IDR {got['idr_ms'][0]:.1f} "
+                  f"ms, {what} {got['idr_ms'][1]:.1f} ms (phase 13: "
+                  f"{ref['idr_ms'][0]:.1f}, {ref['idr_ms'][1]:.1f}); decode "
+                  f"{got['decode_fps']:.3f} fps through RetrieveFrameData "
+                  f"against {ref['decode_fps']:.3f} | {smi}")
+    finally:
+        decoder_api.VideoDecoder._fallback_to_reference = inner
+
+    # ---- (b) a C program in a child process, on api_main_1080p's frames.
+    name = "api_main_1080p"
+    run = API_RUNS[name]
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(prog)) as tmp:
+        raw, out = os.path.join(tmp, "in.yuv"), os.path.join(tmp, "aus.bin")
+        with open(raw, "wb") as f:
+            f.write(b"".join(api_clip(name)))
+        cmd = [prog, "--in", raw, "--out", out, "--device", "cuda",
+               *capi_drive_args(params, run)]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              env=child_env(), timeout=900)
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"capi_drive exited {proc.returncode}:\n"
+                                 f"{proc.stdout[-2000:]}{proc.stderr[-4000:]}")
+        codes, aus = read_capi_drive_output(out)
+    want = golden[name]
+    if codes != want["codes"] or len(aus) != len(want["au_sha256"]):
+        raise AssertionError(f"capi_drive: codes {codes}, {len(aus)} AUs")
+    _first_difference(f"{name} through capi_drive", aus, want["au_sha256"],
+                      want["au_bytes"])
+    t = json.loads(proc.stdout.strip().splitlines()[-1])
+    enc_s = sum(t["frame_ms"]) / 1e3
+    idr2 = dict((n, i) for n, i, _ in API_IDRS)[name]
+    p_ms = [v for i, v in enumerate(t["frame_ms"]) if i not in (0, idr2)]
+    print(f"[capi] {name} through capi_drive (a C program, --device cuda, "
+          f"child process): every code SUCCESS, {len(aus)} AUs == JAX "
+          f"golden; wall {wall:.2f} s: start-up {wall - enc_s:.2f} s "
+          f"outside EncodeOneFrame (factory: interpreter and imports "
+          f"{t['create_s']:.2f} s, InitEncoder + StartEncoder "
+          f"{t['init_s']:.3f} s, the rest process start and exit), "
+          f"encoding {enc_s:.2f} s (IDR {t['frame_ms'][0]:.1f} ms, reset "
+          f"IDR {t['frame_ms'][idr2]:.1f} ms, P frames "
+          f"{len(p_ms) / (sum(p_ms) / 1e3):.3f} fps) | {smi}")
+    return launches + capi_hop(smi, golden, lib, clip)
+
+
+def capi_hop(smi: str, golden: dict, lib, bufs) -> int:
+    """Phase 18 (c): what the C hop costs a P frame. One encoder through
+    encode_one_frame and one through EncodeOneFrame, both at
+    api_main_1080p's properties without its reset, take the IDR and then
+    the P frames of `bufs` in turns (Python, C, C, Python, ...), each frame
+    timed alone between device synchronises; every AU of the two equal,
+    the first six the golden's. Returns the whole-frame kernel's
+    launches."""
+    import ctypes
+
+    import torch
+
+    from media_tpu_torch import api
+    from media_tpu_torch.core import params
+    from media_tpu_torch.ops.deblock_wave import deblock_wave
+
+    name = "api_main_1080p"
+    props, _n, events, _geometry = API_RUNS[name]
+    deblock_wave.launches = 0
+    store = params.ParamStore({getattr(params, k): v
+                               for k, v in props.items()})
+    py = api.create_video_encoder(store, device="cuda")
+    enc = lib.CreateVideoEncoder()
+    if not enc:
+        raise AssertionError("CreateVideoEncoder returned NULL")
+    codes = [py.init_encoder(), py.start_encoder()]
+    for k, v in props.items():
+        codes.append(lib.MtpuEncoderSetParam(
+            enc, getattr(params, k).encode(), str(v).encode()))
+    codes += [lib.InitEncoder(enc), lib.StartEncoder(enc)]
+    ptr = ctypes.POINTER(ctypes.c_uint8)()
+    n_out = ctypes.c_uint32()
+
+    def through_c(buf):
+        code = lib.EncodeOneFrame(enc, buf, len(buf), ctypes.byref(ptr),
+                                  ctypes.byref(n_out))
+        return code, ctypes.string_at(ptr, n_out.value)
+
+    routes = {"python": py.encode_one_frame, "c": through_c}
+    aus = {"python": [], "c": []}
+    ms = {"python": [], "c": []}
+    for i, buf in enumerate(bufs):
+        for route in (("python", "c") if i % 2 == 0 else ("c", "python")):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            code, au = routes[route](buf)
+            torch.cuda.synchronize()
+            ms[route].append((time.perf_counter() - t0) * 1e3)
+            codes.append(code)
+            aus[route].append(bytes(au))
+    codes += [py.stop_encoder(), py.destroy_encoder(), lib.StopEncoder(enc),
+              lib.DestroyVideoEncoder(enc)]
+    launches = deblock_wave.launches
+    if any(codes) or aus["c"] != aus["python"]:
+        raise AssertionError(f"C hop: codes {codes}, AUs equal "
+                             f"{aus['c'] == aus['python']}")
+    n_same = min(events)  # the frames before the golden run's reset
+    _first_difference(f"{name} C hop", aus["c"][:n_same],
+                      golden[name]["au_sha256"], golden[name]["au_bytes"])
+    if launches != 2 * len(bufs):
+        raise AssertionError(f"C hop: {launches} whole-frame launches for "
+                             f"2 x {len(bufs)} pictures")
+    diff = [c - p for c, p in zip(ms["c"][1:], ms["python"][1:])]
+    print(f"[capi] (c) the C hop alone, {name} without its reset, IDR + "
+          f"{len(bufs) - 1} P frames through encode_one_frame and through "
+          f"EncodeOneFrame in turns: AUs equal, the first {n_same} the "
+          f"golden's; P frame ms, median: Python "
+          f"{float(np.median(ms['python'][1:])):.3f}, C "
+          f"{float(np.median(ms['c'][1:])):.3f}, C - Python per frame "
+          f"median {float(np.median(diff)):.3f} (quartiles "
+          f"{float(np.percentile(diff, 25)):.3f} / "
+          f"{float(np.percentile(diff, 75)):.3f}), C faster on "
+          f"{sum(d < 0 for d in diff)} of {len(diff)} frames; IDR "
+          f"{ms['python'][0]:.1f} / {ms['c'][0]:.1f} ms | {smi}")
+    return launches
+
+
+def _crop(planes, w: int, h: int):
+    """The displayed part of a picture's Y, U, V planes."""
+    return (planes[0][:h, :w], planes[1][: h // 2, : w // 2],
+            planes[2][: h // 2, : w // 2])
+
+
+def avref_unavailable(message: str) -> bool:
+    """Whether a failed shim build failed for want of libavcodec itself
+    (its header or its library), the one failure phase 19 may report and
+    pass over."""
+    return bool(re.search(r"lib(avcodec|avutil)/\S+\.h: No such file|"
+                          r"cannot find -lav(codec|util)", message))
+
+
+def phase_avref(smi: str, golden: dict, cq, i4) -> int:
+    """libavcodec (ffmpeg's H.264 decoder, through
+    media_tpu_torch/testing/avref.py) on two whole 1080p streams of the
+    port: phase 5's nine AUs, cq = (AUs, phase 6's route-frame decoder and
+    its pictures, the encoder's last recon; the decoder goes on with the
+    AUs it has not decoded), and phase 9's seventeen, i4 = (AUs, the
+    encoder's last recon, phase 9's decoded pictures of the first nine).
+    ffmpeg's pictures are the displayed 1920x1080 of the port's (1920x1088
+    planes, cropped), the port's are the golden's, and ffmpeg's last is the
+    encoder's last recon. Returns the whole-frame launches of the decoder
+    going on."""
+    from media_tpu_torch.ops.deblock_wave import deblock_wave
+    from media_tpu_torch.testing import avref
+
+    if not avref.available():
+        msg = avref.build_error()
+        if not avref_unavailable(msg):
+            raise AssertionError(f"avref shim: {msg}")
+        print(f"[avref] unavailable: {msg} | {smi}")
+        return 0
+    cq_aus, dec, cq_frames, cq_recon = cq
+    deblock_wave.launches = 0
+    cq_frames = cq_frames + [f for au in cq_aus[len(cq_frames):]
+                             for f in dec.decode_annexb(au)]
+    launches = deblock_wave.launches
+    if len(cq_frames) != len(cq_aus) or launches != len(cq_aus) - N_CQ_P - 1:
+        raise AssertionError(f"[avref] {len(cq_frames)} pictures and "
+                             f"{launches} launches for {len(cq_aus)} AUs")
+    i4_aus, i4_recon, i4_frames = i4
+    streams = (
+        ("phase 5 (constant QP 30, CAVLC)", cq_aus, cq_frames,
+         golden["decoded_sha256"], cq_recon),
+        ("phase 9 (CBR 8 Mbit/s, CABAC, I_4x4)", i4_aus, i4_frames,
+         golden[I4_RUN]["decoded_sha256"], i4_recon))
+    for what, aus, frames, want, recon in streams:
+        t0 = time.perf_counter()
+        ff = avref.decode(b"".join(aus))
+        t_ff = time.perf_counter() - t0
+        if len(ff) != len(aus):
+            raise AssertionError(f"[avref] {what}: ffmpeg returned {len(ff)} "
+                                 f"pictures for {len(aus)} AUs")
+        shapes = [p.shape for p in ff[0]]
+        if shapes != [(HEIGHT, WIDTH)] + [(HEIGHT // 2, WIDTH // 2)] * 2:
+            raise AssertionError(f"[avref] {what}: ffmpeg's planes {shapes}")
+        digests = [planes_sha(f) for f in frames]
+        if digests != want:
+            raise AssertionError(f"[avref] {what}: the port's pictures "
+                                 "differ from the golden")
+        for i, f in enumerate(frames):
+            ours = _crop((f.y, f.u, f.v), WIDTH, HEIGHT)
+            if _sha_planes(ff[i]) != _sha_planes(ours):
+                raise AssertionError(f"[avref] {what}: ffmpeg's picture {i} "
+                                     "differs from the port's")
+        if _sha_planes(ff[-1]) != _sha_planes(_crop(recon, WIDTH, HEIGHT)):
+            raise AssertionError(f"[avref] {what}: ffmpeg's last picture "
+                                 "differs from the encoder's last recon")
+        print(f"[avref] {what}: libavcodec decodes all {len(aus)} AUs; "
+              f"pictures 0-{len(frames) - 1} == the port's TpuDecoder "
+              f"pictures (cropped to {WIDTH}x{HEIGHT}) == JAX golden, "
+              f"picture {len(aus) - 1} == the encoder's last recon; ffmpeg "
+              f"{t_ff * 1e3 / len(aus):.1f} ms a picture on the host (one "
+              f"thread) | {smi}")
     return launches
 
 
@@ -2434,30 +2934,39 @@ def main() -> None:
         raise AssertionError(f"input clip digest {clip_sha} != recorded "
                              f"{golden['clip_sha256']} (numpy clip differs)")
     phase_native(smi, bufs)
-    enc_launches, aus, recon_idr, recon_run = phase_main_path(smi, golden,
-                                                              bufs)
-    dec_launches, step_launches = phase_decode_path(smi, golden, aus,
-                                                    recon_idr, recon_run)
+    (enc_launches, aus, recon_idr, recon_run, staged,
+     recon_last) = phase_main_path(smi, golden, bufs)
+    dec_launches, step_launches, cq_dec, cq_frames = phase_decode_path(
+        smi, golden, aus, recon_idr, recon_run)
     rate_launches, keep = phase_rate_path(smi, golden, bufs,
                                           RATE_RUNS_PHASE7)
     sess, _run, got = keep["cbr_cabac_aq"]
     t_per_mb = _rate_stage_split(sess, bufs[5], got["rc_final"]["qp"], smi)
     run = keep["cbr_cabac"][1]
-    cabac_launches = phase_cabac_decode(
+    cabac_launches, _frames = phase_cabac_decode(
         smi, golden["cbr_cabac"]["decoded_sha256"], run["aus"],
         run["recon_idr"], run["recon_run"])
-    del keep, sess, run
+    del keep, sess, run, _frames
     i4_launches, keep = phase_rate_path(smi, golden, bufs, (I4_RUN,))
-    run = keep[I4_RUN][1]
-    i4_launches += phase_cabac_decode(
+    sess, run, _got = keep[I4_RUN]
+    n_launch, i4_frames = phase_cabac_decode(
         smi, golden[I4_RUN]["decoded_sha256"], run["aus"], run["recon_idr"],
         run["recon_run"], what="CABAC + I_4x4")
-    del keep, run
+    i4_launches += n_launch
+    # Phase 19 takes the whole stream and the last recon.
+    i4_stream = (run["aus"] + run["staged"], [_host(p) for p in sess.recon],
+                 i4_frames)
+    del keep, sess, run, _got, i4_frames
     _i4_idr_split(smi, bufs)
     slice_launches, slice_step_launches = phase_multislice(smi, golden, bufs)
     bgop_launches = phase_bgop(smi, golden, bufs)
     phase_lossless(smi, golden, bufs)
-    api_launches = phase_api(smi, golden)
+    api_launches, api_runs = phase_api(smi, golden)
+    capi_launches = phase_capi(smi, golden, api_runs, bufs)
+    avref_launches = phase_avref(
+        smi, golden, (aus + staged, cq_dec, cq_frames, recon_last),
+        i4_stream)
+    del cq_dec, cq_frames, i4_stream
     oracle_launches = phase_oracle(smi, golden)
     phase_hevc(smi, golden)
     sharded_launches = phase_sharded(smi, golden, bufs)
@@ -2468,8 +2977,9 @@ def main() -> None:
          "replaces": "media_tpu/ops/deblock_wave_pallas.py:230",
          "launches": (enc_launches + dec_launches + rate_launches
                       + cabac_launches + i4_launches + slice_launches
-                      + bgop_launches + api_launches + oracle_launches
-                      + sharded_launches + gop_launches),
+                      + bgop_launches + api_launches + capi_launches
+                      + avref_launches + oracle_launches + sharded_launches
+                      + gop_launches),
          "launches_encode_path": enc_launches,
          "launches_decode_path": dec_launches,
          "launches_rate_path": rate_launches,
@@ -2478,6 +2988,8 @@ def main() -> None:
          "launches_multislice": slice_launches,
          "launches_bgop": bgop_launches,
          "launches_api": api_launches,
+         "launches_capi": capi_launches,
+         "launches_avref": avref_launches,
          "launches_oracle_phase": oracle_launches,
          "launches_sharded": sharded_launches,
          "launches_gop_dispatch": gop_launches,

@@ -1,5 +1,7 @@
 """Host (C++) entropy runtime of the port: CAVLC and CABAC slice writers,
-CAVLC and CABAC slice parsers, the CAVLC->CABAC transcoder, RBSP escaping.
+CAVLC and CABAC slice parsers, the CAVLC->CABAC transcoder, RBSP escaping;
+and the build of the port's C ABI (libVideoCodec, build_capi) and of the
+standalone C caller of it (build_capi_drive).
 
 Counterpart of media_tpu/native/__init__.py. The sources are the port's own
 copies under media_tpu_torch/csrc/*.cpp; their tables come from
@@ -24,6 +26,8 @@ import functools
 import hashlib
 import os
 import subprocess
+import sys
+import sysconfig
 import time
 
 import numpy as np
@@ -69,8 +73,16 @@ def build(compiler: str = "g++") -> tuple[str, float]:
     with open(f"{inc}.{tag}", "w") as f:
         f.write(inc_text)
     os.replace(f"{inc}.{tag}", inc)
-    tmp = f"{lib}.{tag}"
-    cmd = [compiler, *CXX_FLAGS, f"-I{out_dir}", *srcs, "-o", tmp]
+    _compile([compiler, *CXX_FLAGS, f"-I{out_dir}", *srcs], lib)
+    return lib, time.perf_counter() - t0
+
+
+def _compile(cmd: list, out: str) -> None:
+    """Run `cmd -o <out>.<pid>.tmp` and move the result to `out`, so that
+    processes building at once never see a partial file. Raises
+    RuntimeError with the command line and the compiler's output."""
+    tmp = f"{out}.{os.getpid()}.tmp"
+    cmd = [*cmd, "-o", tmp]
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True, cwd=CSRC)
     except OSError as e:
@@ -80,8 +92,126 @@ def build(compiler: str = "g++") -> tuple[str, float]:
         raise RuntimeError(f"media_tpu_torch.native: build failed "
                            f"({proc.returncode}):\n{' '.join(cmd)}\n"
                            f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, lib)
+    os.replace(tmp, out)
+
+
+# The C ABI bridge (csrc/api) and its standalone caller. The bridge embeds
+# this interpreter's Python: it is compiled against its headers and linked
+# to its shared libpython, found in LIBDIR (also the library's run path).
+CAPI_DIR = os.path.join(CSRC, "api")
+CAPI_SOURCES = ("video_codec_api.cpp", "video_codec_api.h", "capi_drive.c")
+
+
+def _python_link() -> list:
+    ver = f"{sys.version_info.major}.{sys.version_info.minor}"
+    libdir = sysconfig.get_config_var("LIBDIR")
+    return [f"-L{libdir}", f"-Wl,-rpath,{libdir}", f"-lpython{ver}"]
+
+
+def _capi_dir(compiler: str) -> str:
+    """csrc/build/capi_<hash>/: the hash covers the sources, the header, the
+    flags, the compiler and the Python version."""
+    h = hashlib.sha256(" ".join((compiler, *CXX_FLAGS, *_python_link(),
+                                 sysconfig.get_path("include"),
+                                 sys.version)).encode())
+    for name in CAPI_SOURCES:
+        with open(os.path.join(CAPI_DIR, name), "rb") as f:
+            h.update(f.read())
+    return os.path.join(CSRC, "build", f"capi_{h.hexdigest()[:16]}")
+
+
+def build_capi(compiler: str = "g++") -> tuple[str, float]:
+    """Compile the port's C ABI, libVideoCodec.so, unless a build of these
+    exact sources exists. Returns (library path, seconds spent building; 0.0
+    when cached). Raises RuntimeError with the compiler's output when the
+    build fails."""
+    out_dir = _capi_dir(compiler)
+    lib = os.path.join(out_dir, "libVideoCodec.so")
+    if os.path.exists(lib):
+        return lib, 0.0
+    os.makedirs(out_dir, exist_ok=True)
+    t0 = time.perf_counter()
+    _compile([compiler, *CXX_FLAGS, f"-I{sysconfig.get_path('include')}",
+              os.path.join(CAPI_DIR, "video_codec_api.cpp"),
+              *_python_link()], lib)
     return lib, time.perf_counter() - t0
+
+
+class PicInfo(ctypes.Structure):
+    """MtpuPicInfo of video_codec_api.h."""
+    _fields_ = [("width", ctypes.c_uint32), ("height", ctypes.c_uint32)]
+
+
+# MtpuDecoderEventCallback and MtpuCopyFrameFunc of video_codec_api.h.
+EVENT_CB = ctypes.CFUNCTYPE(None, ctypes.c_uint32, ctypes.POINTER(PicInfo),
+                            ctypes.c_void_p)
+COPY_CB = ctypes.CFUNCTYPE(ctypes.c_int64, ctypes.POINTER(ctypes.c_uint8),
+                           ctypes.c_uint32, ctypes.POINTER(ctypes.c_uint8),
+                           ctypes.c_uint32, ctypes.POINTER(PicInfo),
+                           ctypes.c_void_p)
+
+
+def bind_capi(path: str) -> ctypes.CDLL:
+    """Load a libVideoCodec with ctypes.CDLL (RTLD_LOCAL: two bridges that
+    export the same names can live in one process) and declare the
+    signatures of video_codec_api.h. The JAX package's library has every
+    function but the two *On factories. A call releases the interpreter
+    lock; the bridge takes it again itself."""
+    lib = ctypes.CDLL(path)
+    vp, u32, u32p = ctypes.c_void_p, ctypes.c_uint32, ctypes.POINTER(
+        ctypes.c_uint32)
+    u8pp = ctypes.POINTER(ctypes.POINTER(ctypes.c_uint8))
+    sigs = {
+        "CreateVideoEncoder": (vp, []),
+        "CreateVideoEncoderOn": (vp, [ctypes.c_char_p]),
+        "DestroyVideoEncoder": (ctypes.c_int, [vp]),
+        "MtpuEncoderSetParam": (ctypes.c_int, [vp, ctypes.c_char_p,
+                                               ctypes.c_char_p]),
+        "InitEncoder": (ctypes.c_int, [vp]),
+        "StartEncoder": (ctypes.c_int, [vp]),
+        "EncodeOneFrame": (ctypes.c_int, [vp, ctypes.c_char_p, u32, u8pp,
+                                          u32p]),
+        "StopEncoder": (ctypes.c_int, [vp]),
+        "ResetEncoder": (ctypes.c_int, [vp]),
+        "CreateVideoDecoder": (vp, []),
+        "CreateVideoDecoderOn": (vp, [ctypes.c_char_p]),
+        "DestroyVideoDecoder": (ctypes.c_int, [vp]),
+        "MtpuCreateDecoder": (ctypes.c_int, [vp, u32]),
+        "InitDecoder": (ctypes.c_int, [vp]),
+        "SetDecodeParams": (ctypes.c_int, [vp, u32, u32, u32]),
+        "StartDecoder": (ctypes.c_int, [vp]),
+        "SendStreamData": (ctypes.c_int, [vp, ctypes.c_char_p, u32]),
+        "RetrieveFrameData": (ctypes.c_int, [vp, ctypes.c_char_p, u32, u32p,
+                                             u32p, u32p]),
+        "FlushDecoder": (ctypes.c_int, [vp]),
+        "StopDecoder": (ctypes.c_int, [vp]),
+        "ResetDecoder": (ctypes.c_int, [vp]),
+        "GetDecodeParams": (ctypes.c_int, [vp, u32p, u32p, u32p, u32p]),
+        "SetDecoderCallbacks": (ctypes.c_int, [vp, EVENT_CB, vp]),
+        "SetCopyFrameFunc": (ctypes.c_int, [vp, COPY_CB, vp]),
+    }
+    for name, (restype, argtypes) in sigs.items():
+        if hasattr(lib, name):
+            fn = getattr(lib, name)
+            fn.restype, fn.argtypes = restype, argtypes
+    return lib
+
+
+def build_capi_drive() -> tuple[str, float]:
+    """Compile csrc/api/capi_drive.c, a C program that encodes a raw I420
+    file through libVideoCodec, into the library's build directory, linked
+    to the library with a run path to it. Returns (program path, seconds
+    spent building both; 0.0 when cached)."""
+    lib, secs = build_capi()
+    out_dir = os.path.dirname(lib)
+    prog = os.path.join(out_dir, "capi_drive")
+    if os.path.exists(prog):
+        return prog, secs
+    t0 = time.perf_counter()
+    _compile(["gcc", "-O2", "-std=c11", f"-I{CAPI_DIR}",
+              os.path.join(CAPI_DIR, "capi_drive.c"), f"-L{out_dir}",
+              f"-Wl,-rpath,{out_dir}", "-lVideoCodec"], prog)
+    return prog, secs + time.perf_counter() - t0
 
 
 @functools.lru_cache(maxsize=None)

@@ -529,3 +529,33 @@ def test_process_dispatch_on_cuda_matches_a_session(cuda_device):
         want += sess.encode_frames(bufs[g * gop : (g + 1) * gop])
     assert aus == want
     assert rep.kernel_launches == len(bufs) and rep.n_procs == 2
+
+
+def test_capi_void_factories_run_on_cuda(cuda_device):
+    """The port's C ABI on the card: CreateVideoEncoder() and
+    CreateVideoDecoder() (void, so "cuda") give the AUs and payloads of the
+    same run through CreateVideoEncoderOn(b"cpu") /
+    CreateVideoDecoderOn(b"cpu"), with two whole-frame launches a picture
+    on the card and none on the CPU."""
+    import chip_smoke as cs
+    from media_tpu_torch import native
+    from media_tpu_torch.core import params as P
+
+    lib = native.bind_capi(native.build_capi()[0])
+    frames = _clip(64, 48, 5)
+    run = ({"KEY_HW_WIDTH": 64, "KEY_HW_HEIGHT": 48, "KEY_PROFILE": "main"},
+           5, {3: {"KEY_FORCE_KEYFRAME": "1"}}, (64, 48))
+    out = {}
+    for name, enc, dec in (
+            ("cuda", lib.CreateVideoEncoder, lib.CreateVideoDecoder),
+            ("cpu", lambda: lib.CreateVideoEncoderOn(b"cpu"),
+             lambda: lib.CreateVideoDecoderOn(b"cpu"))):
+        before = dw.deblock_wave.launches
+        e = cs.drive_capi_encode(lib, enc(), P, run, frames,
+                                 torch.cuda.synchronize)
+        d = cs.drive_capi_decode(lib, dec(), e["aus"], (64, 48))
+        out[name] = (e["codes"], e["aus"], d["codes"], d["payloads"],
+                     dw.deblock_wave.launches - before)
+    gpu, cpu = out["cuda"], out["cpu"]
+    assert gpu[:4] == cpu[:4] and not any(gpu[0] + gpu[2])
+    assert len(gpu[3]) == 5 and gpu[4] == 10 and cpu[4] == 0

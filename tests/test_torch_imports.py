@@ -41,7 +41,7 @@ for name in names:
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "media_tpu"))
 print(len(names), "modules;", "foreign:", bad)
-sys.exit(1 if bad or len(names) < 53 else 0)
+sys.exit(1 if bad or len(names) < 55 else 0)
 """
 
 
@@ -53,7 +53,7 @@ def test_port_imports_neither_jax_nor_media_tpu():
 
 
 # The modules of the public API, the scalar oracle, the HEVC slot, the
-# tiles and the pool, and the GOP dispatchers.
+# tiles and the pool, the GOP dispatchers, and the conformance oracle.
 API_MODULES = [
     "media_tpu_torch.core.log", "media_tpu_torch.core.params",
     "media_tpu_torch.api", "media_tpu_torch.api.errors",
@@ -65,6 +65,7 @@ API_MODULES = [
     "media_tpu_torch.parallel.sharding",
     "media_tpu_torch.parallel.gop_dispatch",
     "media_tpu_torch.parallel.gop_dispatch_mp",
+    "media_tpu_torch.testing.avref",
 ]
 
 # torch first (it is no foreign module), then one forked child per module:
@@ -145,6 +146,19 @@ def test_chip_smoke_source_names_no_jax_import():
         words = line.split()
         if words[:1] in (["import"], ["from"]):
             assert words[1].split(".")[0] not in ("jax", "media_tpu"), line
+
+
+def test_c_bridge_names_only_the_ports_modules():
+    """The port's C ABI bridge and its C caller import Python modules by
+    name: media_tpu_torch's, never the JAX package's."""
+    srcs = sorted((ROOT / "media_tpu_torch" / "csrc" / "api").glob("*.c*"))
+    assert {p.name for p in srcs} >= {"video_codec_api.cpp", "capi_drive.c"}
+    named = set()
+    for p in srcs:
+        text = p.read_text()
+        assert not re.search(r"\bmedia_tpu\.", text), p.name
+        named |= set(re.findall(r'"(media_tpu_torch\.[\w.]+)"', text))
+    assert named == {"media_tpu_torch.core.params", "media_tpu_torch.api"}
 
 
 def _public(mod):
