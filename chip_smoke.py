@@ -19,7 +19,16 @@ Phases, one line each; nothing is caught, any failure exits non-zero:
      wave (N=60) and of N=1, QP 22/30/36, and in place on the planes
      against gather -> plain step -> scatter; the routes of deblock_frame
      against each other (whole frame, per wave as a CUDA graph, per wave
-     launch by launch); and torch.argmin's first-minimum rule on CUDA;
+     launch by launch); torch.argmin's first-minimum rule on CUDA; and the
+     CAVLC P-slice packer kernel (csrc/device_cavlc.cu) against
+     pack_pslice_plain at (1,1), (1,5), (5,1), (4,6), (17,120), 1080p and
+     4K on sparse symbols, dense 28-bit escapes at ratio 1.0, a stream cap
+     that overflows, groups of the bitcat tree over their level's cap, an
+     all-skip slice and a QP map with the slice QP on the device: every
+     stream word and bit count equal; at 1080p both timed on fresh inputs,
+     the kernel also on an all-skip slice (its device-busy time the floor of
+     the kernel's dependent launches), the device activities and busy time
+     of one call of each by torch.profiler;
   4. native: g++ builds the host library (media_tpu_torch/csrc/*.cpp, tables
      generated from the package); on the symbols of one 1080p I and one P
      frame of the clip, each C++ writer, parser and the transcoder against
@@ -30,9 +39,13 @@ Phases, one line each; nothing is caught, any failure exits non-zero:
      encode_frames_staged; the deblock launch count, the AU digests against
      the ones recorded from the JAX package
      (media_tpu_torch/golden_1080p.json, written by
-     tools/record_torch_golden.py), P-frame fps, a per-stage split and the
-     last recon's PSNR; plus a small clip encoded on CUDA and on the CPU
-     (which the tests hold to the JAX package) must give the same bytes;
+     tools/record_torch_golden.py), P-frame fps, a per-stage split (the
+     packer kernel beside its plain version on the frame's own symbols) and
+     the last recon's PSNR; the same frames once more with
+     entropy_mode="host" (the C++ writer): the same AUs, no packer launch,
+     its P fps beside the device route's; plus a small clip encoded on CUDA
+     and on the CPU (which the tests hold to the JAX package) must give the
+     same bytes;
   6. decode path: TpuDecoder() (default device, whole-frame deblock route)
      decodes phase 5's IDR + 4 P access units: picture 0 must equal the
      encoder's recon after the IDR and picture 4 its recon after
@@ -140,8 +153,11 @@ Phases, one line each; nothing is caught, any failure exits non-zero:
      compiler's message and the run goes on; any other failure fails it.
 Phases 9 to 16 hold every AU and decoded picture to the golden as well.
 Phase 3 also runs route wave in two threads, 20 pictures each.
-The second-to-last line is the kernels' JSON record; the last line is
-{"ok": true, "device": {...}}.
+The packer kernel's launches are counted phase by phase (the count set to 0
+just before a phase and read just after; the spawned GOP workers report
+theirs); the encode, rate, I_4x4, tile and GOP-dispatch phases must have
+launched it. The second-to-last line is the kernels' JSON record; the last
+line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -1217,6 +1233,192 @@ def phase_kernel_step(smi: str) -> dict:
     return {"max_abs_err": max_err, **rec}
 
 
+# The packer kernel's cases (csrc/device_cavlc.cu): (symbol options, out_words
+# for n MBs, ratio, per-MB QP). Sparse levels; dense 28-bit escapes at ratio
+# 1.0 into every chunk's full slot; a cap far below the stream (overflow); a
+# stream that fits while groups of the bitcat tree overflow their level's
+# capacity; all MBs skipped; a QP map with the slice QP a 0-d device tensor.
+PACK_CASES = {
+    "sparse": ({}, lambda n: 64 * n + 4096, 0.25, False),
+    "escapes": ({"big": True, "density": 2}, lambda n: 432 * n + 64, 1.0,
+                False),
+    "overflow": ({}, lambda n: 8, 0.25, False),
+    "level_cap": ({"big": True, "density": 1}, lambda n: 432 * n + 64, 0.25,
+                  False),
+    "all_skip": ({"skip_share": 1.0}, lambda n: 1 << 14, 0.25, False),
+    "qp_map": ({"skip_share": 0.1}, lambda n: 64 * n + 4096, 0.25, True),
+}
+PACK_SHAPES = ((1, 1), (1, 5), (5, 1), (4, 6), (17, 120), (R_MB, C_MB),
+               (135, 240))
+
+
+def slice_symbols(R, C, seed, density=6, big=False, skip_share=0.3):
+    """A packed (R, C, 386) int16 symbol tensor as the P core returns it:
+    random MVs and sparse levels (|level| <= 2063, the quantiser's bound),
+    a share of all-zero MBs of zero MV (skip runs)."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    hi = 2063 if big else 8
+    parts = [rng.integers(-35, 36, (R, C, 2))]
+    for width, sparse in ((256, density), (8, 4), (120, 8)):
+        parts.append((rng.integers(0, sparse, (R, C, width)) == 0)
+                     * rng.integers(-hi, hi + 1, (R, C, width)))
+    zero = rng.random((R, C)) < skip_share
+    for a in parts:
+        a[zero] = 0
+    return torch.as_tensor(np.concatenate(parts, axis=2).astype(np.int16))
+
+
+def _device_activities(fn) -> tuple:
+    """Device activities (kernels, memsets, copies) of one call of fn and
+    the sum of their device times in ms, by torch.profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return len(events), sum(e.time_range.elapsed_us() for e in events) / 1e3
+
+
+def _pack_bound(n_mbs: int, out_words: int, stream_bits: int) -> dict:
+    """The least time the card could take to pack a slice without a QP map:
+    the int32 symbols (386 a MB) read once, the int64 stream and the bit
+    count written once, over the memory rate; against one operation per
+    symbol and per stream bit over the ALU rate (a floor: the codewords'
+    arithmetic is more)."""
+    n_bytes = n_mbs * 386 * 4 + out_words * 8 + 8
+    ops = n_mbs * 386 + stream_bits
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_S, ops / PEAK_OPS_S
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None}  # no PyTorch call codes CAVLC
+
+
+def _stream_err(got, want) -> int:
+    """max |difference| of two (stream, bits) results, words and bits."""
+    return max(int((got[0] - want[0]).abs().max()),
+               abs(int(got[1]) - int(want[1])))
+
+
+def phase_kernel_pack(smi: str) -> dict:
+    """The CAVLC P-slice packer kernel against its plain version on every
+    case of PACK_CASES at every shape of PACK_SHAPES: stream words (all of
+    them, overflow included) and bit counts equal. At 1080p both are timed
+    on random symbols, and the kernel on an all-skip slice; one call of
+    each through torch.profiler for its device activities and busy time."""
+    import torch
+
+    from media_tpu_torch.entropy.device_cavlc import (
+        launch_pack_pslice, pack_pslice_device, pack_pslice_plain)
+    from media_tpu_torch.pipeline.pframe_core import unpack_symbols_device
+
+    dev = torch.device("cuda")
+    max_err = 0
+    for R, C in PACK_SHAPES:
+        results = []
+        for i, (name, (opts, words, ratio, per_mb)) in enumerate(
+                PACK_CASES.items()):
+            sym = unpack_symbols_device(
+                slice_symbols(R, C, R * C + i, **opts).to(dev))
+            kw = {}
+            if per_mb:
+                rng = np.random.default_rng(i)
+                kw = {"qp_map": torch.as_tensor(rng.integers(20, 45, (R, C)),
+                                                dtype=torch.int32, device=dev),
+                      "slice_qp": torch.tensor(31, dtype=torch.int32,
+                                               device=dev)}
+            cap = words(R * C)
+            got = launch_pack_pslice(*sym, cap, ratio=ratio, **kw)
+            want = pack_pslice_plain(*sym, cap, ratio=ratio, **kw)
+            err = _stream_err(got, want)
+            max_err = max(max_err, err)
+            bits = int(want[1])
+            if err:
+                raise AssertionError(f"packer kernel vs plain, {R}x{C} "
+                                     f"{name}: max |err| {err}")
+            if (name == "level_cap" or (name == "overflow" and R * C > 1)) \
+                    != (bits > cap * 32):
+                raise AssertionError(f"packer {R}x{C} {name}: {bits} bits "
+                                     f"for a cap of {cap} words")
+            results.append(f"{name} {bits}")
+        print(f"[kernel] device_cavlc_pack R={R} C={C} equal=True (words and "
+              f"bits): " + ", ".join(results))
+
+    # 1080p: times on fresh copies of random symbols.
+    R, C = R_MB, C_MB
+    cap = 98742  # the session's full budget at 1080p (cap_words)
+    packed = slice_symbols(R, C, 11).to(dev)
+
+    def fresh():
+        return unpack_symbols_device(packed.clone())
+
+    rec = {"ms": _cuda_median_ms(lambda *a: launch_pack_pslice(*a, cap),
+                                 fresh, 30),
+           "plain_ms": _cuda_median_ms(lambda *a: pack_pslice_plain(*a, cap),
+                                       fresh, 5)}
+    sym = fresh()
+    want = pack_pslice_plain(*sym, cap)
+    rec["max_abs_err"] = max(max_err,
+                             _stream_err(launch_pack_pslice(*sym, cap), want))
+    skip = slice_symbols(R, C, 12, skip_share=1.0).to(dev)
+    rec["all_skip_ms"] = _cuda_median_ms(
+        lambda *a: launch_pack_pslice(*a, cap),
+        lambda: unpack_symbols_device(skip.clone()), 30)
+    # On an all-skip slice no chunk codes a bit: the device time of the
+    # launches themselves, the floor of the kernel's dependent chain.
+    rec["chain_floor_ms"] = _device_activities(
+        lambda: launch_pack_pslice(*unpack_symbols_device(skip), cap))[1]
+    (rec["device_activities_per_call"],
+     rec["device_busy_ms"]) = _device_activities(
+        lambda: launch_pack_pslice(*sym, cap))
+    (rec["plain_device_activities_per_call"],
+     rec["plain_device_busy_ms"]) = _device_activities(
+        lambda: pack_pslice_plain(*sym, cap))
+    rec.update(_pack_bound(R * C, cap, int(want[1])))
+    before = pack_pslice_device.launches
+    pack_pslice_device(*sym, cap)
+    if pack_pslice_device.launches != before + 1:
+        raise AssertionError("pack_pslice_device did not count its launch")
+    print(f"[kernel] device_cavlc_pack 1080p (R={R}, C={C}, {int(want[1])} "
+          f"bits of random symbols) kernel {rec['ms']:.4f} ms (median of 30, "
+          f"each on fresh symbols, the wrapper's host work inside the event "
+          f"pair), {rec['device_activities_per_call']} device activities a "
+          f"call (4 kernels, 2 memsets) busy {rec['device_busy_ms']:.4f} ms "
+          f"by the profiler; all-skip slice {rec['all_skip_ms']:.4f} ms, "
+          f"busy {rec['chain_floor_ms']:.4f} ms (the chain floor); "
+          f"plain {rec['plain_ms']:.3f} ms (median of 5), "
+          f"{rec['plain_device_activities_per_call']} device activities busy "
+          f"{rec['plain_device_busy_ms']:.3f} ms; bound "
+          f"{rec['bound_ms']:.6f} ms by {rec['bound_by']} | {smi}")
+    return rec
+
+
+def _pack_beside_plain(what: str, *args, **kw) -> tuple:
+    """ms of the packer kernel and of its plain version on the same inputs
+    (mean of 3 after a warm-up, each synchronised), after holding them
+    equal."""
+    import torch
+
+    from media_tpu_torch.entropy.device_cavlc import (
+        launch_pack_pslice, pack_pslice_plain)
+
+    box = {}
+    t_kernel = _cuda_ms(lambda: box.update(
+        kernel=launch_pack_pslice(*args, **kw)), 3)
+    t_plain = _cuda_ms(lambda: box.update(
+        plain=pack_pslice_plain(*args, **kw)), 3)
+    torch.cuda.synchronize()
+    if _stream_err(box["kernel"], box["plain"]):
+        raise AssertionError(f"{what}: packer kernel and plain differ")
+    return t_kernel, t_plain, box["kernel"]
+
+
 def _timed(fn):
     t0 = time.perf_counter()
     out = fn()
@@ -1364,7 +1566,6 @@ def _stage_split(sess, frame_buf, smi: str):
     on its own (outside the pipelined session loop)."""
     import torch
 
-    from media_tpu_torch.entropy.device_cavlc import pack_pslice_device
     from media_tpu_torch.ops.pad import edge_pad
     from media_tpu_torch.ops.transform import chroma_qp
     from media_tpu_torch.ops.deblock_wave import launch_deblock_wave
@@ -1390,12 +1591,8 @@ def _stage_split(sess, frame_buf, smi: str):
     t_core = _cuda_ms(core, 3)
     out = box["out"]
     cap = sess._device_cap()
-
-    def pack():
-        box["pack"] = pack_pslice_device(
-            *unpack_symbols_device(out["symbols"]), cap)
-
-    t_pack = _cuda_ms(pack, 3)
+    t_pack, t_pack_plain, (stream, bits) = _pack_beside_plain(
+        "constant-QP P frame", *unpack_symbols_device(out["symbols"]), cap)
     t_deblock = _cuda_ms(lambda: deblock_pframe_from_symbols(
         out["recon_y"], out["recon_u"], out["recon_v"], out["symbols"], qp,
         qp_c, R, C), 3)
@@ -1405,7 +1602,6 @@ def _stage_split(sess, frame_buf, smi: str):
         lambda *w: launch_deblock_wave(*w, meta, R, C),
         lambda: [out[k].to(torch.uint8, copy=True).contiguous() for k in
                  ("recon_y", "recon_u", "recon_v")], 20)
-    stream, bits = box["pack"]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     nbits = int(bits)
@@ -1413,9 +1609,11 @@ def _stage_split(sess, frame_buf, smi: str):
     sess._pslice_au_packed(words, nbits)
     t_host = (time.perf_counter() - t0) * 1e3
     print(f"[stages] {WIDTH}x{HEIGHT} P frame ms: p_core {t_core:.3f} cavlc_pack "
-          f"{t_pack:.3f} deblock {t_deblock:.3f} (of which the kernel, median "
-          f"of 20 on this frame's planes, {t_kernel:.4f}) host_au "
+          f"{t_pack:.3f} (the kernel; plain {t_pack_plain:.3f}, same stream "
+          f"and {nbits} bits) deblock {t_deblock:.3f} (of which the kernel, "
+          f"median of 20 on this frame's planes, {t_kernel:.4f}) host_au "
           f"{t_host:.3f} | {smi}")
+    return {"ms_clip_frame": t_pack, "plain_ms_clip_frame": t_pack_plain}
 
 
 def phase_main_path(smi: str, golden: dict, bufs):
@@ -1424,6 +1622,7 @@ def phase_main_path(smi: str, golden: dict, bufs):
     AUs, the last recon as numpy planes)."""
     import torch
 
+    from media_tpu_torch.entropy.device_cavlc import pack_pslice_device
     from media_tpu_torch.ops.deblock_wave import deblock_wave
     from media_tpu_torch.pipeline.codec import EncoderConfig, EncoderSession
 
@@ -1434,12 +1633,16 @@ def phase_main_path(smi: str, golden: dict, bufs):
     sess.PIPELINE_CHUNK = CHUNK
     staged_in = bufs[1 + N_CQ_P : 1 + 2 * N_CQ_P]
 
-    deblock_wave.launches = 0
+    deblock_wave.launches = pack_pslice_device.launches = 0
     t0 = time.perf_counter()
     aus = [sess.encode_frame(bufs[0])]
     t_idr = time.perf_counter() - t0
     recon_idr = [p.clone() for p in sess.recon]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     aus += sess.encode_frames(bufs[1 : 1 + N_CQ_P])
+    torch.cuda.synchronize()
+    t_frames = time.perf_counter() - t0
     recon_run = [p.clone() for p in sess.recon]
     chunks = sess.upload_frames(staged_in)
     torch.cuda.synchronize()
@@ -1448,11 +1651,13 @@ def phase_main_path(smi: str, golden: dict, bufs):
     torch.cuda.synchronize()
     t_staged = time.perf_counter() - t0
     launches = deblock_wave.launches
+    packs = pack_pslice_device.launches
 
     n_frames = len(aus) + len(staged)
-    if launches != n_frames:
-        raise AssertionError(f"deblock kernel launched {launches} times for "
-                             f"{n_frames} frames")
+    if launches != n_frames or packs < n_frames - 1:
+        raise AssertionError(f"deblock kernel launched {launches} times, "
+                             f"packer kernel {packs} times for {n_frames} "
+                             "frames")
     # At constant QP the staged entry emits what encode_frames would: the
     # golden's AUs 0..8, whichever entry the golden took them through.
     _first_difference("constant-QP AUs", aus + staged, golden["au_sha256"],
@@ -1470,10 +1675,34 @@ def phase_main_path(smi: str, golden: dict, bufs):
     print(f"[main] {WIDTH}x{HEIGHT} QP{QP} IDR + {2 * N_CQ_P} P on cuda: AUs "
           f"== JAX golden (sha256 {_sha(aus)[:16]}, staged "
           f"{_sha(staged)[:16]}), deblock launches {launches}/{n_frames}, "
-          f"IDR {t_idr * 1e3:.1f} ms (C++ I-slice writer)")
+          f"packer launches {packs}/{n_frames - 1}, IDR {t_idr * 1e3:.1f} ms "
+          f"(C++ I-slice writer)")
     print(f"[main] P-frame fps {N_CQ_P / t_staged:.3f} (staged, {N_CQ_P} "
           f"frames, {sum(len(a) for a in staged) * 8 / N_CQ_P / 1e3:.1f} "
-          f"kbit/frame), PSNR(last Y) {psnr:.3f} dB | {smi}")
+          f"kbit/frame), {N_CQ_P / t_frames:.3f} through encode_frames, "
+          f"PSNR(last Y) {psnr:.3f} dB | {smi}")
+    # The same frames with the slice data written on the host (C++ CAVLC
+    # writer on downloaded symbols): the same bytes, no packer launch.
+    host = EncoderSession(EncoderConfig(width=WIDTH, height=HEIGHT, qp=QP,
+                                        gop_size=300, entropy_mode="host"))
+    host.PIPELINE_CHUNK = CHUNK
+    before = pack_pslice_device.launches
+    host_aus = [host.encode_frame(bufs[0])]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    host_aus += host.encode_frames(bufs[1 : 1 + 2 * N_CQ_P])
+    torch.cuda.synchronize()
+    t_host = time.perf_counter() - t0
+    if host_aus != aus + staged or pack_pslice_device.launches != before:
+        raise AssertionError(
+            f"entropy_mode='host': AUs equal {host_aus == aus + staged}, "
+            f"{pack_pslice_device.launches - before} packer launches")
+    print(f"[main] entropy_mode='host' (C++ CAVLC writer on the host): AUs == "
+          f"device route, no packer launch; P-frame fps {2 * N_CQ_P / t_host:.3f} "
+          f"through encode_frames ({2 * N_CQ_P} frames) against "
+          f"{N_CQ_P / t_frames:.3f} (device route, encode_frames) and "
+          f"{N_CQ_P / t_staged:.3f} (device route, staged) | {smi}")
+    del host
     # The IDR once more through the Python I-slice writer, for its time.
     slow = EncoderSession(EncoderConfig(width=WIDTH, height=HEIGHT, qp=QP,
                                         gop_size=300), host_coder="python")
@@ -1485,7 +1714,7 @@ def phase_main_path(smi: str, golden: dict, bufs):
     print(f"[main] IDR through the Python I-slice writer {t_idr_py * 1e3:.1f} "
           f"ms against {t_idr * 1e3:.1f} ms, same bytes | {smi}")
 
-    _stage_split(sess, bufs[2 * N_CQ_P + 1], smi)
+    pack_rec = _stage_split(sess, bufs[2 * N_CQ_P + 1], smi)
 
     # The CPU path is the one the tests hold to the JAX package at small
     # sizes; CUDA must give the same bytes.
@@ -1499,7 +1728,7 @@ def phase_main_path(smi: str, golden: dict, bufs):
     if out[0] != out[1]:
         raise AssertionError("64x48 AUs differ between cuda and cpu")
     print("[main] 64x48 IDR + 4 P: cuda AUs == cpu AUs")
-    return launches, aus, recon_idr, recon_run, staged, recon
+    return launches, aus, recon_idr, recon_run, staged, recon, pack_rec
 
 
 def _split(timings, idr: bool) -> str:
@@ -1667,8 +1896,7 @@ def _rate_stage_split(sess, frame_buf, qp_f: float, smi: str):
     alone in per-MB-QP mode, and the host's transcode of the slice."""
     import torch
 
-    from media_tpu_torch.entropy.device_cavlc import (
-        _last_coded, pack_pslice_device)
+    from media_tpu_torch.entropy.device_cavlc import _last_coded
     from media_tpu_torch.ops.deblock_wave import launch_deblock_wave
     from media_tpu_torch.pipeline.deblock_apply import (
         build_meta, deblock_pframe_from_symbols, pframe_bs_grids)
@@ -1694,12 +1922,9 @@ def _rate_stage_split(sess, frame_buf, qp_f: float, smi: str):
     mv, luma, cdc, cac = unpack_symbols_device(out["symbols"])
     cap = sess._device_cap()
 
-    def pack():
-        box["pack"] = pack_pslice_device(mv, luma, cdc, cac, cap,
-                                         qp_map=qp_map.reshape(R, C),
-                                         slice_qp=qp)
-
-    t_pack = _cuda_ms(pack, 3)
+    t_pack, t_pack_plain, (stream, bits) = _pack_beside_plain(
+        "per-MB-QP P frame", mv, luma, cdc, cac, cap,
+        qp_map=qp_map.reshape(R, C), slice_qp=qp)
     coded = ((luma != 0).any(dim=3).any(dim=2)
              | (cdc != 0).any(dim=3).any(dim=2)
              | (cac != 0).any(dim=4).any(dim=3).any(dim=2))
@@ -1714,7 +1939,6 @@ def _rate_stage_split(sess, frame_buf, qp_f: float, smi: str):
         lambda *w: launch_deblock_wave(*w, meta, R, C),
         lambda: [p.to(torch.uint8, copy=True).contiguous() for p in recon],
         20)
-    stream, bits = box["pack"]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     nbits = int(bits)
@@ -1723,11 +1947,13 @@ def _rate_stage_split(sess, frame_buf, qp_f: float, smi: str):
     t_host = (time.perf_counter() - t0) * 1e3
     print(f"[stages] {WIDTH}x{HEIGHT} P frame of the CBR + CABAC path with "
           f"per-MB QP {int(qp_f)}/{int(qp_f) + 1} ms: p_core {t_core:.3f} "
-          f"cavlc_pack {t_pack:.3f} deblock {t_deblock:.3f} (of which the "
+          f"cavlc_pack {t_pack:.3f} (the kernel; plain {t_pack_plain:.3f}, "
+          f"same stream) deblock {t_deblock:.3f} (of which the "
           f"kernel in per-MB-QP mode, median of 20 on this frame's planes, "
           f"{t_kernel:.4f}) host download + C++ transcode + AU {t_host:.3f} "
           f"({nbits} CAVLC bits -> {len(au)} B) | {smi}")
-    return t_kernel
+    return t_kernel, {"ms_per_mb_qp_clip_frame": t_pack,
+                      "plain_ms_per_mb_qp_clip_frame": t_pack_plain}
 
 
 def phase_rate_path(smi: str, golden: dict, bufs, names):
@@ -2833,11 +3059,12 @@ def phase_sharded(smi: str, golden: dict, bufs) -> int:
     return launches
 
 
-def phase_gop_dispatch(smi: str) -> int:
+def phase_gop_dispatch(smi: str) -> tuple:
     """GOP dispatch at 1080p: one sequential session applying
     reset_gop_state per GOP, the thread dispatcher, and the process
     dispatcher with 1, 2 and 4 workers on the one card, every AU list equal
-    to the sequential one. Returns the whole-frame kernel's launches."""
+    to the sequential one. Returns the whole-frame kernel's launches and the
+    packer kernel's launches in the worker processes."""
     import torch
 
     from media_tpu_torch.ops.deblock_wave import deblock_wave
@@ -2889,17 +3116,21 @@ def phase_gop_dispatch(smi: str) -> int:
           f"(busiest worker {rep.busiest_worker_s:.2f} s of {rep.wall_s:.2f} "
           f"s) | {smi}")
 
+    worker_packs = 0
     for k in DISPATCH_PROCS:
         aus, rep = dispatch_multiprocess(
             cfg_kwargs, frames, GOP_DISPATCH, n_procs=k,
             use_distributed=(k == 4), prewarm=True, device="cuda")
         if (aus != seq or rep.kernel_launches != n
+                or rep.pack_launches != n - GOPS_DISPATCH
                 or rep.distributed != (k == 4)):
             raise AssertionError(
                 f"gop {k} processes: AUs equal {aus == seq}, "
-                f"{rep.kernel_launches} launches for {n}, process group "
+                f"{rep.kernel_launches} deblock and {rep.pack_launches} "
+                f"packer launches for {n} frames, process group "
                 f"{rep.distributed}")
         launches += rep.kernel_launches
+        worker_packs += rep.pack_launches
         per = {}
         for g in rep.gops:
             per[g.worker] = per.get(g.worker, 0.0) + g.compute_s
@@ -2912,7 +3143,7 @@ def phase_gop_dispatch(smi: str) -> int:
               f"dispatch_overhead {overhead:.4f}, prewarm_s "
               f"{rep.prewarm_s:.3f}, wall with start-up {rep.wall_s:.2f} s "
               f"({mps}) | {smi}")
-    return launches
+    return launches, worker_packs
 
 
 def main() -> None:
@@ -2927,50 +3158,81 @@ def main() -> None:
     phase_build()
     krec = phase_kernel(smi)
     krec_step = phase_kernel_step(smi)
+    krec_pack = phase_kernel_pack(smi)
     if "--kernels" in sys.argv[1:]:
         return
+    from media_tpu_torch.entropy.device_cavlc import pack_pslice_device
+
+    packs = {}  # phase -> the packer kernel's launches in its run
+
+    def counted(name, phase, *args):
+        """Run a phase with the packer's launch count set to 0 just before
+        and read just after (its stage splits time the kernel through the
+        uncounted launch_pack_pslice)."""
+        pack_pslice_device.launches = 0
+        out = phase(*args)
+        packs[name] = packs.get(name, 0) + pack_pslice_device.launches
+        return out
+
     bufs, clip_sha = clip_i420()
     if clip_sha != golden["clip_sha256"]:
         raise AssertionError(f"input clip digest {clip_sha} != recorded "
                              f"{golden['clip_sha256']} (numpy clip differs)")
     phase_native(smi, bufs)
-    (enc_launches, aus, recon_idr, recon_run, staged,
-     recon_last) = phase_main_path(smi, golden, bufs)
-    dec_launches, step_launches, cq_dec, cq_frames = phase_decode_path(
-        smi, golden, aus, recon_idr, recon_run)
-    rate_launches, keep = phase_rate_path(smi, golden, bufs,
-                                          RATE_RUNS_PHASE7)
+    (enc_launches, aus, recon_idr, recon_run, staged, recon_last,
+     pack_rec) = counted("encode_path", phase_main_path, smi, golden, bufs)
+    dec_launches, step_launches, cq_dec, cq_frames = counted(
+        "decode_path", phase_decode_path, smi, golden, aus, recon_idr,
+        recon_run)
+    rate_launches, keep = counted("rate_path", phase_rate_path, smi, golden,
+                                  bufs, RATE_RUNS_PHASE7)
     sess, _run, got = keep["cbr_cabac_aq"]
-    t_per_mb = _rate_stage_split(sess, bufs[5], got["rc_final"]["qp"], smi)
+    t_per_mb, rate_pack_rec = _rate_stage_split(
+        sess, bufs[5], got["rc_final"]["qp"], smi)
+    pack_rec.update(rate_pack_rec)
     run = keep["cbr_cabac"][1]
-    cabac_launches, _frames = phase_cabac_decode(
-        smi, golden["cbr_cabac"]["decoded_sha256"], run["aus"],
-        run["recon_idr"], run["recon_run"])
+    cabac_launches, _frames = counted(
+        "cabac_decode_path", phase_cabac_decode, smi,
+        golden["cbr_cabac"]["decoded_sha256"], run["aus"], run["recon_idr"],
+        run["recon_run"])
     del keep, sess, run, _frames
-    i4_launches, keep = phase_rate_path(smi, golden, bufs, (I4_RUN,))
+    i4_launches, keep = counted("i4x4_operating_point", phase_rate_path, smi,
+                                golden, bufs, (I4_RUN,))
     sess, run, _got = keep[I4_RUN]
-    n_launch, i4_frames = phase_cabac_decode(
-        smi, golden[I4_RUN]["decoded_sha256"], run["aus"], run["recon_idr"],
-        run["recon_run"], what="CABAC + I_4x4")
+    n_launch, i4_frames = counted(
+        "i4x4_operating_point", lambda: phase_cabac_decode(
+            smi, golden[I4_RUN]["decoded_sha256"], run["aus"],
+            run["recon_idr"], run["recon_run"], what="CABAC + I_4x4"))
     i4_launches += n_launch
     # Phase 19 takes the whole stream and the last recon.
     i4_stream = (run["aus"] + run["staged"], [_host(p) for p in sess.recon],
                  i4_frames)
     del keep, sess, run, _got, i4_frames
     _i4_idr_split(smi, bufs)
-    slice_launches, slice_step_launches = phase_multislice(smi, golden, bufs)
-    bgop_launches = phase_bgop(smi, golden, bufs)
-    phase_lossless(smi, golden, bufs)
-    api_launches, api_runs = phase_api(smi, golden)
-    capi_launches = phase_capi(smi, golden, api_runs, bufs)
-    avref_launches = phase_avref(
-        smi, golden, (aus + staged, cq_dec, cq_frames, recon_last),
-        i4_stream)
+    slice_launches, slice_step_launches = counted(
+        "multislice", phase_multislice, smi, golden, bufs)
+    bgop_launches = counted("bgop", phase_bgop, smi, golden, bufs)
+    counted("lossless", phase_lossless, smi, golden, bufs)
+    api_launches, api_runs = counted("api", phase_api, smi, golden)
+    capi_launches = counted("capi", phase_capi, smi, golden, api_runs, bufs)
+    avref_launches = counted(
+        "avref", phase_avref, smi, golden,
+        (aus + staged, cq_dec, cq_frames, recon_last), i4_stream)
     del cq_dec, cq_frames, i4_stream
-    oracle_launches = phase_oracle(smi, golden)
-    phase_hevc(smi, golden)
-    sharded_launches = phase_sharded(smi, golden, bufs)
-    gop_launches = phase_gop_dispatch(smi)
+    oracle_launches = counted("oracle_phase", phase_oracle, smi, golden)
+    counted("hevc", phase_hevc, smi, golden)
+    sharded_launches = counted("sharded", phase_sharded, smi, golden, bufs)
+    gop_launches, worker_packs = counted("gop_dispatch", phase_gop_dispatch,
+                                         smi)
+    packs["gop_dispatch"] += worker_packs  # the spawned workers' launches
+    # The paths that code P slices on the device: each must have run
+    # through the kernel.
+    idle = [k for k in ("encode_path", "rate_path", "i4x4_operating_point",
+                        "sharded", "gop_dispatch") if not packs[k]]
+    if idle:
+        raise AssertionError(f"packer kernel never launched in {idle}")
+    print("[kernel] device_cavlc_pack launches by phase: " + ", ".join(
+        f"{k} {v}" for k, v in packs.items()))
     print(json.dumps({"kernels": [
         {"name": "deblock_wave", "route": "cuda",
          "source": "media_tpu_torch/csrc/deblock_wave.cu",
@@ -2999,7 +3261,13 @@ def main() -> None:
          "replaces": "media_tpu/ops/deblock_pallas.py:96",
          "launches": step_launches + slice_step_launches,
          "launches_decode_path": step_launches,
-         "launches_multislice": slice_step_launches, **krec_step}]}))
+         "launches_multislice": slice_step_launches, **krec_step},
+        {"name": "device_cavlc_pack", "route": "cuda",
+         "source": "media_tpu_torch/csrc/device_cavlc.cu",
+         "replaces": "media_tpu/entropy/device_cavlc.py:620 (XLA)",
+         "launches": sum(packs.values()),
+         **{f"launches_{k}": v for k, v in packs.items()},
+         **krec_pack, **pack_rec}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -16,11 +16,18 @@ int64 tensors masked to 32 bits: PyTorch implements neither shifts nor
 comparisons for torch.uint32. The per-level capacity schedule of the tree is
 the JAX package's, so the overflow decision (and with it the session's
 retry) is the same.
+
+`pack_pslice_plain` is that packer in plain PyTorch, some 4500 eager launches
+a 1080p frame. `pack_pslice_device` runs it for CPU tensors and, for CUDA
+tensors, launches the hand-written kernel csrc/device_cavlc.cu, which
+computes the same stream and bit count (the overflow decision included).
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
+import threading
 
 import numpy as np
 import torch
@@ -507,10 +514,10 @@ def _pad_words(w, target: int):
     return torch.cat([w, w.new_zeros((w.shape[0], target - w.shape[1]))], 1)
 
 
-def pack_pslice_device(mv, luma_levels, cdc_levels, cac_levels,
-                       out_words: int, qp_map=None, slice_qp=None,
-                       ratio: float = 0.25):
-    """Full on-device P-slice packer.
+def pack_pslice_plain(mv, luma_levels, cdc_levels, cac_levels,
+                      out_words: int, qp_map=None, slice_qp=None,
+                      ratio: float = 0.25):
+    """Full on-device P-slice packer, plain PyTorch on the tensors' device.
 
     Inputs are the (R, C, ...) int32 symbol tensors. qp_map/slice_qp select
     per-MB QP coding (see _encode_headers). Returns (stream
@@ -589,6 +596,128 @@ def pack_pslice_device(mv, luma_levels, cdc_levels, cac_levels,
             out_words - stream.shape[-1])])
     total_bits = torch.where(ok, total_bits, out_words * 32 + 1)
     return stream[:out_words], total_bits
+
+
+# ---- the CUDA kernel ---------------------------------------------------------
+
+# The tables in the order of csrc/device_cavlc.cuh's struct Tables.
+KERNEL_TABLES = ("len_ct", "cod_ct", "len_cdc", "cod_cdc", "len_tz", "cod_tz",
+                 "len_tzc", "cod_tzc", "rb_packed", "cbp_inter", "zscan")
+# Each symbol tensor's shape within one MB.
+MB_SHAPES = ((2,), (16, 16), (2, 4), (2, 4, 15))
+
+
+@functools.lru_cache(maxsize=64)
+def bitcat_schedule(n_chunks: int, out_words: int, ratio: float):
+    """(caps, wraps) of bitcat_reduce over n_chunks chunks of BLOCK_WORDS
+    into out_words: the word capacity of a group at each level, and the
+    mask its word shift keeps. _wordshift_right shifts by the binary digits
+    of prefix >> 5 below the bit length of 7 times the width of the level
+    below, so a larger shift (only where the level below overflowed) wraps;
+    the kernel reproduces that, and with it every word of the stream."""
+    caps = _bitcat_caps(n_chunks, BLOCK_WORDS, out_words, ratio, 8)
+    widths = (BLOCK_WORDS, *caps[:-1])
+    return tuple(caps), tuple((1 << (7 * w).bit_length()) - 1 for w in widths)
+
+
+def kernel_operands(mv, luma_levels, cdc_levels, cac_levels):
+    """The symbol tensors as the kernel takes them: int32, each MB's
+    elements contiguous, and their (row, col) MB strides in elements. The
+    views of one (R, C, 386) tensor that unpack_symbols_device returns pass
+    as they are; anything else is converted or made contiguous."""
+    R, C = mv.shape[:2]
+    out, strides = [], []
+    for x, shape in zip((mv, luma_levels, cdc_levels, cac_levels), MB_SHAPES):
+        if tuple(x.shape) != (R, C, *shape):
+            raise ValueError(f"symbol tensor of shape {tuple(x.shape)}, "
+                             f"expected {(R, C, *shape)}")
+        if x.device != mv.device:
+            raise ValueError(f"symbol tensors on {x.device} and {mv.device}")
+        x = x.to(torch.int32)
+        inner = tuple(int(np.prod(shape[i + 1:])) for i in range(len(shape)))
+        if tuple(x.stride()[2:]) != inner:
+            x = x.contiguous()
+        out.append(x)
+        strides += list(x.stride()[:2])
+    return out, strides
+
+
+def launch_pack_pslice(mv, luma_levels, cdc_levels, cac_levels,
+                       out_words: int, qp_map=None, slice_qp=None,
+                       ratio: float = 0.25):
+    """Launch the kernel (csrc/device_cavlc.cu) on the current stream of
+    the tensors' device, with that device current: no count. Returns
+    (stream, total_bits) as pack_pslice_plain does. Reads nothing back from
+    the device: a device slice_qp is read by the kernel."""
+    from .. import kernels
+
+    R, C = mv.shape[:2]
+    dev = mv.device
+    out_words = int(out_words)
+    if out_words < 1:
+        raise ValueError(f"out_words {out_words}")
+    syms, strides = kernel_operands(mv, luma_levels, cdc_levels, cac_levels)
+    qp = seed = None
+    seed_value = 0
+    if qp_map is not None:
+        qp = qp_map.reshape(R * C).to(device=dev, dtype=torch.int32)
+        qp = qp.contiguous()
+        if torch.is_tensor(slice_qp) and slice_qp.device.type != "cpu":
+            seed = slice_qp.to(device=dev, dtype=torch.int32).reshape(1)
+        else:
+            seed_value = int(slice_qp)
+    tb = _tables(dev)
+    caps, wraps = bitcat_schedule(27 * R * C + 1, out_words, float(ratio))
+    lib = kernels.load()
+    stream_out = torch.empty(out_words, dtype=torch.int64, device=dev)
+    total = torch.empty((), dtype=torch.int64, device=dev)
+    scratch = torch.empty(lib.device_cavlc_scratch_bytes(R, C),
+                          dtype=torch.uint8, device=dev)
+
+    def ptr(t):
+        return ctypes.c_void_p(None if t is None else t.data_ptr())
+
+    def host(ctype, values):
+        return ctypes.cast((ctype * len(values))(*values), ctypes.c_void_p)
+
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.device_cavlc_launch(
+            *(ptr(x) for x in syms), host(ctypes.c_int64, strides), ptr(qp),
+            ptr(seed), ctypes.c_int(seed_value),
+            host(ctypes.c_void_p, [tb[k].data_ptr() for k in KERNEL_TABLES]),
+            ctypes.c_int(len(caps)), host(ctypes.c_int64, caps),
+            host(ctypes.c_int64, wraps), ptr(stream_out),
+            ctypes.c_longlong(out_words), ptr(total), ptr(scratch),
+            ctypes.c_int(R), ctypes.c_int(C), ctypes.c_void_p(stream))
+    if err:
+        raise RuntimeError(f"device_cavlc kernel launch failed: "
+                           f"{kernels.error_string(err)}")
+    return stream_out, total
+
+
+def pack_pslice_device(mv, luma_levels, cdc_levels, cac_levels,
+                       out_words: int, qp_map=None, slice_qp=None,
+                       ratio: float = 0.25):
+    """The P-slice packer: (stream (out_words,) int64 words holding uint32
+    values, total_bits () int64), as pack_pslice_plain defines them. On CPU
+    tensors it runs pack_pslice_plain; on CUDA tensors it launches the
+    kernel on the current stream and counts the call in
+    `pack_pslice_device.launches`."""
+    if mv.device.type == "cpu":
+        return pack_pslice_plain(mv, luma_levels, cdc_levels, cac_levels,
+                                 out_words, qp_map=qp_map, slice_qp=slice_qp,
+                                 ratio=ratio)
+    out = launch_pack_pslice(mv, luma_levels, cdc_levels, cac_levels,
+                             out_words, qp_map=qp_map, slice_qp=slice_qp,
+                             ratio=ratio)
+    with _COUNT_LOCK:  # sessions in several threads call it
+        pack_pslice_device.launches += 1
+    return out
+
+
+pack_pslice_device.launches = 0
+_COUNT_LOCK = threading.Lock()
 
 
 # ---- host-side merge --------------------------------------------------------

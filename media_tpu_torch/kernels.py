@@ -94,6 +94,20 @@ def load() -> ctypes.CDLL:
     lib.deblock_wave_step_inplace_launch.restype = ci
     lib.media_cuda_error_string.argtypes = [ci]
     lib.media_cuda_error_string.restype = ctypes.c_char_p
+    return bind_device_cavlc(lib)
+
+
+def bind_device_cavlc(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """The C signatures of the P-slice packer's entry points
+    (csrc/device_cavlc.cu; its host build for the tests,
+    csrc/device_cavlc_emu.cpp, has the same)."""
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.device_cavlc_scratch_bytes.argtypes = [ci, ci]
+    lib.device_cavlc_scratch_bytes.restype = ctypes.c_longlong
+    lib.device_cavlc_launch.argtypes = (
+        [vp] * 7 + [ci, vp, ci, vp, vp, vp, ctypes.c_longlong, vp, vp, ci, ci,
+                    vp])
+    lib.device_cavlc_launch.restype = ci
     return lib
 
 

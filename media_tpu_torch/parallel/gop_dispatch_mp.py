@@ -55,6 +55,9 @@ class MpDispatchReport:
     # Whole-frame deblocking kernel launches of the workers' measured GOPs
     # (ops/deblock_wave.py:deblock_wave.launches; 0 on the CPU).
     kernel_launches: int = 0
+    # CAVLC packer kernel launches of the same GOPs
+    # (entropy/device_cavlc.py:pack_pslice_device.launches; 0 on the CPU).
+    pack_launches: int = 0
 
     @property
     def compute_s_total(self) -> float:
@@ -123,6 +126,7 @@ def _worker_main(widx: int, n_procs: int, coord: str | None,
 
     import numpy as np
 
+    from ..entropy.device_cavlc import pack_pslice_device
     from ..ops.deblock_wave import deblock_wave
     from ..pipeline.codec import EncoderConfig, EncoderSession
     from ..utils import yuv
@@ -141,7 +145,7 @@ def _worker_main(widx: int, n_procs: int, coord: str | None,
     # P-chunk sizes of this gop_size).
     session.encode_frames([warm] * max(2, min(cfg.gop_size, 64)))
     session.reset_gop_state(0)
-    deblock_wave.launches = 0  # count the measured GOPs only
+    deblock_wave.launches = pack_pslice_device.launches = 0  # measured GOPs only
     result_queue.put(("ready", widx, distributed))
     while True:
         item = gop_queue.get()
@@ -155,7 +159,8 @@ def _worker_main(widx: int, n_procs: int, coord: str | None,
         result_queue.put(("gop", widx, g, aus, dt))
     if distributed:
         dist.destroy_process_group()
-    result_queue.put(("done", widx, deblock_wave.launches))
+    result_queue.put(("done", widx, deblock_wave.launches,
+                      pack_pslice_device.launches))
 
 
 def dispatch_multiprocess(cfg_kwargs: dict, frames: list, gop_size: int,
@@ -215,7 +220,7 @@ def dispatch_multiprocess(cfg_kwargs: dict, frames: list, gop_size: int,
     results: dict[int, list] = {}
     stats: list[MpGopStats] = []
     distributed = False
-    launches = 0
+    launches = packs = 0
     ready = done = 0
     try:
         # Wait for EVERY worker's ready (post-warmup) before enqueueing any
@@ -242,6 +247,7 @@ def dispatch_multiprocess(cfg_kwargs: dict, frames: list, gop_size: int,
             elif msg[0] == "done":
                 done += 1
                 launches += msg[2]
+                packs += msg[3]
             elif msg[0] == "log":
                 pass
         for p in procs:
@@ -263,5 +269,5 @@ def dispatch_multiprocess(cfg_kwargs: dict, frames: list, gop_size: int,
                               prewarm_s=prewarm_s, n_procs=n_procs,
                               distributed=distributed,
                               gops=sorted(stats, key=lambda s: s.gop_index),
-                              kernel_launches=launches)
+                              kernel_launches=launches, pack_launches=packs)
     return out, report

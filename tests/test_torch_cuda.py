@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import PACK_SHAPES
 from media_tpu_torch.ops import deblock_pallas as dp
 from media_tpu_torch.ops import deblock_wave as dw
 from media_tpu_torch.pipeline import deblock_apply as tda
@@ -559,3 +560,109 @@ def test_capi_void_factories_run_on_cuda(cuda_device):
     gpu, cpu = out["cuda"], out["cpu"]
     assert gpu[:4] == cpu[:4] and not any(gpu[0] + gpu[2])
     assert len(gpu[3]) == 5 and gpu[4] == 10 and cpu[4] == 0
+
+
+# ------------------------------------------- the CAVLC P-slice packer kernel
+
+
+# One MB, one row, one column, a small slice, a 17-row tile, 1080p and 4K,
+# each with chip_smoke.PACK_CASES: sparse, dense 28-bit escapes at ratio 1.0,
+# a cap that overflows, groups of the bitcat tree over their level's cap,
+# all skipped, a QP map with the slice QP as a 0-d device tensor.
+@pytest.mark.parametrize("R,C", PACK_SHAPES)
+def test_device_cavlc_kernel_matches_plain(cuda_device, R, C):
+    """Every case's stream words (all of them, overflow included) and bit
+    count equal the plain version's on the same device tensors; the calls
+    read nothing back from the device."""
+    from chip_smoke import PACK_CASES, slice_symbols
+    from media_tpu_torch.entropy import device_cavlc as dc
+    from media_tpu_torch.pipeline.pframe_core import unpack_symbols_device
+
+    runs = []
+    for i, (name, (opts, out_words, ratio, per_mb)) in enumerate(
+            PACK_CASES.items()):
+        sym = unpack_symbols_device(
+            slice_symbols(R, C, R * C + i, **opts).to(cuda_device))
+        kw = {}
+        if per_mb:
+            rng = np.random.default_rng(i)
+            kw = {"qp_map": torch.as_tensor(rng.integers(20, 45, (R, C)),
+                                            dtype=torch.int32,
+                                            device=cuda_device),
+                  "slice_qp": torch.tensor(31, dtype=torch.int32,
+                                           device=cuda_device)}
+        runs.append((name, sym, out_words(R * C), ratio, kw))
+    dc.pack_pslice_device(*runs[0][1], runs[0][2])  # build, tables cached
+    before = dc.pack_pslice_device.launches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = [dc.pack_pslice_device(*sym, out_words, ratio=ratio, **kw)
+               for _, sym, out_words, ratio, kw in runs]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert dc.pack_pslice_device.launches == before + len(runs)
+    for (name, sym, out_words, ratio, kw), (stream, bits) in zip(runs, got):
+        want_s, want_b = dc.pack_pslice_plain(*sym, out_words, ratio=ratio,
+                                              **kw)
+        assert stream.device == bits.device == sym[0].device
+        assert int(bits) == int(want_b), name
+        assert torch.equal(stream, want_s), name
+        if name == "level_cap" or (name == "overflow" and R * C > 1):
+            assert int(bits) == out_words * 32 + 1, name
+        elif name == "all_skip":
+            assert int(bits) == 2 * len(f"{R * C + 1:b}") - 1
+        else:
+            assert 0 < int(bits) <= out_words * 32, name
+
+
+def test_device_cavlc_kernel_on_its_tensors_device(cuda_device):
+    from chip_smoke import slice_symbols
+    from media_tpu_torch.entropy import device_cavlc as dc
+    from media_tpu_torch.pipeline.pframe_core import unpack_symbols_device
+
+    torch.cuda.set_device(0)
+    packed = slice_symbols(3, 4, 5)
+    want = dc.pack_pslice_device(*unpack_symbols_device(packed), 4096)
+    for dev in _launch_devices():
+        got = dc.pack_pslice_device(*unpack_symbols_device(packed.to(dev)),
+                                    4096)
+        assert torch.cuda.current_device() == 0
+        assert all(g.device == dev for g in got)
+        assert torch.equal(got[0].cpu(), want[0])
+        assert int(got[1]) == int(want[1])
+
+
+def test_device_cavlc_kernel_in_two_threads(cuda_device):
+    """Two threads, each on a stream of its own, pack their own slices 20
+    times: every result equals its slice's plain version."""
+    import threading
+
+    from chip_smoke import slice_symbols
+    from media_tpu_torch.entropy import device_cavlc as dc
+    from media_tpu_torch.pipeline.pframe_core import unpack_symbols_device
+
+    R, C = 17, 30
+    syms = [unpack_symbols_device(slice_symbols(R, C, s).to(cuda_device))
+            for s in (1, 2)]
+    want = [dc.pack_pslice_plain(*sym, 1 << 14) for sym in syms]
+    errors = []
+
+    def work(i):
+        try:
+            with torch.cuda.stream(torch.cuda.Stream()):
+                for _ in range(20):
+                    stream, bits = dc.pack_pslice_device(*syms[i], 1 << 14)
+                    torch.cuda.current_stream().synchronize()
+                    if not (torch.equal(stream, want[i][0])
+                            and int(bits) == int(want[i][1])):
+                        errors.append(i)
+        except Exception as e:  # reported below
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=work, args=(i,)) for i in (0, 1)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert errors == []
