@@ -28,7 +28,16 @@ Phases, one line each; nothing is caught, any failure exits non-zero:
      stream word and bit count equal; at 1080p both timed on fresh inputs,
      the kernel also on an all-skip slice (its device-busy time the floor of
      the kernel's dependent launches), the device activities and busy time
-     of one call of each by torch.profiler;
+     of one call of each by torch.profiler; and the P-frame core kernel
+     (csrc/pframe_core.cu) against local_pframe_core_plain, its search alone
+     against search_refine_luma_plain, at (1,1), (1,5), (5,1), (6,9), 1080p
+     and 4K on the pictures of PCORE_KINDS (a pan, two-level planes full of
+     ties, constant planes, stripes that tie at the minimum, MVs past the
+     far and near edges, noise at QP 0) at search ranges 8 and 4 with the
+     QP as an int, a 0-d tensor and a per-MB map, and on two 17-row tiles
+     whose halo rows are their neighbours' rows: every output equal; at
+     1080p both timed on fresh inputs, the search alone too, the device
+     activities and busy time of one call of each;
   4. native: g++ builds the host library (media_tpu_torch/csrc/*.cpp, tables
      generated from the package); on the symbols of one 1080p I and one P
      frame of the clip, each C++ writer, parser and the transcoder against
@@ -40,7 +49,8 @@ Phases, one line each; nothing is caught, any failure exits non-zero:
      the ones recorded from the JAX package
      (media_tpu_torch/golden_1080p.json, written by
      tools/record_torch_golden.py), P-frame fps, a per-stage split (the
-     packer kernel beside its plain version on the frame's own symbols) and
+     P-core and packer kernels beside their plain versions on the frame's
+     own planes and symbols) and
      the last recon's PSNR; the same frames once more with
      entropy_mode="host" (the C++ writer): the same AUs, no packer launch,
      its P fps beside the device route's; plus a small clip encoded on CUDA
@@ -61,8 +71,8 @@ Phases, one line each; nothing is caught, any failure exits non-zero:
      encode_frames and 8 P staged; per AU the digest, per P frame the device
      loop's bits and QP (exact), the rate controller's floats (1e-5), all
      against the golden, so that a divergence names its first frame; the
-     achieved bitrate, P fps, a per-stage split with the whole-frame kernel
-     in per-MB-QP mode; then IDR + 4 P with adaptive_qp and IDR + 4 P CBR
+     achieved bitrate, P fps, a per-stage split with the P-core kernel
+     beside its plain version and the whole-frame kernel in per-MB-QP mode; then IDR + 4 P with adaptive_qp and IDR + 4 P CBR
      with CAVLC against their goldens; no refusal of a C++ routine; one
      whole-frame kernel launch per picture;
   8. CABAC decode: TpuDecoder() on phase 7's IDR + 8 P: planes equal to the
@@ -153,11 +163,14 @@ Phases, one line each; nothing is caught, any failure exits non-zero:
      compiler's message and the run goes on; any other failure fails it.
 Phases 9 to 16 hold every AU and decoded picture to the golden as well.
 Phase 3 also runs route wave in two threads, 20 pictures each.
-The packer kernel's launches are counted phase by phase (the count set to 0
-just before a phase and read just after; the spawned GOP workers report
-theirs); the encode, rate, I_4x4, tile and GOP-dispatch phases must have
-launched it. The second-to-last line is the kernels' JSON record; the last
-line is {"ok": true, "device": {...}}.
+The packer's and the P core's kernel launches are counted phase by phase
+(the counts set to 0 just before a phase and read just after; the spawned
+GOP workers report theirs); the encode, rate, I_4x4, tile and GOP-dispatch
+phases must have launched the packer, and every phase that encodes P frames
+on the card (5, 7, 9, 10, 11, 13, 14, 16, 17, 18) the P core, the B-GOP's
+B pictures its search alone. A [time] line gives each phase's seconds. The
+second-to-last line is the kernels' JSON record; the last line is
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -1270,9 +1283,126 @@ def slice_symbols(R, C, seed, density=6, big=False, skip_share=0.3):
     return torch.as_tensor(np.concatenate(parts, axis=2).astype(np.int16))
 
 
-def _device_activities(fn) -> tuple:
+# Pictures the P-core kernel is held to its plain version on: a textured
+# pan with sub-pel motion and noise; two-level planes (ties nearly
+# everywhere); constant planes; stripes that match equally well at two
+# candidates of the same cost; a pan by +-(rs - 1) samples that sends the
+# edge MBs' MVs past the picture's far or near edges; and independent
+# noise with chroma residuals near 255, whose chroma DC levels reach their
+# clamp at QP 0.
+PCORE_KINDS = ("moving", "flat", "constant", "periodic", "edge_far",
+               "edge_near", "noise")
+PCORE_SHAPES = ((1, 1), (1, 5), (5, 1), (6, 9), (R_MB, C_MB), (135, 240))
+
+
+def _pcore_pictures(H, W, rs, seed, kind):
+    """(ref, cur) luma pictures of H x W, int64."""
+    rng = np.random.default_rng(seed)
+    m = rs + 8  # the source's margin beyond the picture
+    hm, wm = H + 2 * m, W + 2 * m
+
+    def smooth():
+        big = rng.integers(0, 256, (hm, wm)).astype(np.float64)
+        for _ in range(2):
+            big = (big + np.roll(big, 1, 0) + np.roll(big, 1, 1)) / 3
+        return big
+
+    def at(big, dy, dx):
+        return big[m + dy : m + dy + H, m + dx : m + dx + W]
+
+    if kind == "moving":
+        big = smooth()
+        cur = 0.5 * (at(big, 3, -2) + at(big, 4, -2)) + rng.normal(0, 2, (H, W))
+        ref = at(big, 0, 0)
+    elif kind == "flat":
+        big = (rng.integers(0, 256, (hm, wm)) // 128) * 100
+        ref, cur = at(big, 0, 0), at(big, 2, -3)
+    elif kind == "constant":
+        ref, cur = np.full((H, W), 90), np.full((H, W), 97)
+    elif kind == "periodic":
+        big = (np.where((np.arange(wm) // 2) % 2, 200, 40)[None, :]
+               + np.where((np.arange(hm) // 2) % 2, 30, 0)[:, None])
+        ref, cur = at(big, 0, 0), at(big, 2, 2)
+    elif kind in ("edge_far", "edge_near"):
+        s = max(rs - 1, 1) * (1 if kind == "edge_far" else -1)
+        big = smooth()
+        ref, cur = at(big, 0, 0), at(big, s, s)
+    elif kind == "noise":
+        ref, cur = (rng.integers(0, 256, (H, W)) for _ in range(2))
+    else:
+        raise ValueError(kind)
+    return [np.asarray(p).round().clip(0, 255).astype(np.int64)
+            for p in (ref, cur)]
+
+
+def pcore_planes(R, C, rs, seed, kind="moving", tiles=1, tile=0):
+    """The P core's six int32 inputs for an (R, C) MB grid, made with numpy
+    from `seed`: cur y, u, v, and the reference's y, u, v extended above
+    and below by rs + 4 and rs // 2 + 2 rows. With tiles > 1 the grid is
+    row tile `tile` of a picture of tiles * R MB rows, whose extension rows
+    are the picture's rows next to the tile (edge copies only at the
+    picture's top and bottom), as parallel/sharding.py hands them over."""
+    import torch
+
+    hy, hc = rs + 4, rs // 2 + 2
+    ref, cur = _pcore_pictures(16 * R * tiles, 16 * C, rs, seed, kind)
+    out_cur, out_ref = [], []
+    chroma = [(p[::2, ::2] // 2 + 40, p[1::2, 1::2] // 3 + 70)
+              for p in (ref, cur)]
+    if kind == "noise":  # chroma residuals near 255: the DC levels clamp
+        chroma = [(0 * u, 0 * v) for u, v in chroma[:1]] + [
+            (255 - u % 8, 255 - v % 8) for u, v in chroma[1:]]
+    for p, size in ((cur, 16), (chroma[1][0], 8), (chroma[1][1], 8)):
+        out_cur.append(p[size * R * tile : size * R * (tile + 1)])
+    for p, size, h in ((ref, 16, hy), (chroma[0][0], 8, hc),
+                       (chroma[0][1], 8, hc)):
+        ext = np.pad(p, ((h, h), (0, 0)), mode="edge")
+        out_ref.append(ext[size * R * tile : size * R * (tile + 1) + 2 * h])
+    return [torch.as_tensor(np.ascontiguousarray(p), dtype=torch.int32)
+            for p in out_cur + out_ref]
+
+
+def pcore_qps(form: str, n: int, seed: int):
+    """(qp, qp_c) in one of the P core's three forms: Python ints, 0-d int32
+    tensors, or per-MB (n,) int32 maps drawn apart for luma and chroma;
+    "low" is QP 0, where the levels reach their clamp."""
+    import torch
+
+    if form == "int":
+        return 30, 29
+    if form == "low":
+        return 0, 0
+    if form == "0d":
+        return (torch.tensor(27, dtype=torch.int32),
+                torch.tensor(26, dtype=torch.int32))
+    rng = np.random.default_rng(seed)
+    return (torch.as_tensor(rng.integers(0, 52, n), dtype=torch.int32),
+            torch.as_tensor(rng.integers(0, 40, n), dtype=torch.int32))
+
+
+def pcore_runs(R, C, device):
+    """Every picture kind of PCORE_KINDS at both search ranges (8, the
+    session's, and 4), with the QP in its three forms in turn (QP 0 on the
+    noise): [(label, inputs, rs, qp, qp_c)] on `device`."""
+    import torch
+
+    runs = []
+    forms = ("int", "0d", "map")
+    for rs in (8, 4):
+        for i, kind in enumerate(PCORE_KINDS):
+            form = "low" if kind == "noise" else forms[(i + rs) % 3]
+            seed = R * C + i + rs
+            planes = [p.to(device) for p in pcore_planes(R, C, rs, seed, kind)]
+            qp, qp_c = (q.to(device) if torch.is_tensor(q) else q
+                        for q in pcore_qps(form, R * C, seed))
+            runs.append((f"rs {rs} {kind} {form}", planes, rs, qp, qp_c))
+    return runs
+
+
+def _device_activities(fn, names: bool = False) -> tuple:
     """Device activities (kernels, memsets, copies) of one call of fn and
-    the sum of their device times in ms, by torch.profiler."""
+    the sum of their device times in ms, by torch.profiler; with `names`
+    also the sorted set of their names."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1283,7 +1413,8 @@ def _device_activities(fn) -> tuple:
         fn()
         torch.cuda.synchronize()
     events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    return len(events), sum(e.time_range.elapsed_us() for e in events) / 1e3
+    out = (len(events), sum(e.time_range.elapsed_us() for e in events) / 1e3)
+    return out + (sorted({e.name for e in events}),) if names else out
 
 
 def _pack_bound(n_mbs: int, out_words: int, stream_bits: int) -> dict:
@@ -1399,24 +1530,160 @@ def phase_kernel_pack(smi: str) -> dict:
     return rec
 
 
-def _pack_beside_plain(what: str, *args, **kw) -> tuple:
-    """ms of the packer kernel and of its plain version on the same inputs
-    (mean of 3 after a warm-up, each synchronised), after holding them
-    equal."""
+def _pcore_bound(planes, out, rs: int) -> dict:
+    """The least time the card could take for the P core: the six int32
+    input planes read once, the symbols, recon planes and SAD total written
+    once, over the memory rate; against three operations (subtract,
+    absolute value, accumulate) per sample of every full-pel and quarter-pel
+    candidate over the ALU rate (a floor: the 6-tap filters, the chroma MC
+    and the transforms are more)."""
+    n_mbs = out["symbols"].shape[0] * out["symbols"].shape[1]
+    n_bytes = _nbytes(*planes, *out.values())
+    ops = n_mbs * ((2 * rs + 1) ** 2 + 49) * 256 * 3
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_S, ops / PEAK_OPS_S
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_bytes": n_bytes, "bound_ops": ops,
+            # No PyTorch call computes a first-minimum SAD search or this
+            # transform chain.
+            "library_ms": None}
+
+
+def _core_err(got, want) -> int:
+    """max |difference| over every output of two P-core results."""
+    return max(int((got[k].long() - want[k].long()).abs().max())
+               for k in want)
+
+
+def phase_kernel_pcore(smi: str) -> dict:
+    """The P-core kernel against its plain versions on every run of
+    pcore_runs at every shape of PCORE_SHAPES and on two 17-row tiles of a
+    1080p picture cut in four, whose halo rows are the neighbours' rows:
+    every symbol, recon sample and SAD total, and the search alone's MVs,
+    predictions and costs, equal. At 1080p both timed on fresh inputs, the
+    search alone too; one call of each through torch.profiler for its
+    device activities and busy time."""
     import torch
 
+    from media_tpu_torch.pipeline.pframe_core import (
+        launch_pframe_core, launch_search_refine_luma, local_pframe_core,
+        local_pframe_core_plain, search_refine_luma_plain, to_mbs)
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    max_err = 0
+    # Every run at the small shapes; at 1080p and 4K (where the plain
+    # version's time and the inputs' numpy build dominate the phase) every
+    # other run: both ranges, the three QP forms and QP 0, two-level,
+    # striped and off-edge pictures still among them.
+    cases = [(f"{R}x{C}", R, C,
+              pcore_runs(R, C, dev)[:: 2 if R * C >= R_MB * C_MB else 1])
+             for R, C in PCORE_SHAPES]
+    tiles = []
+    for rs, t in ((8, 1), (4, 2)):
+        planes = [p.to(dev) for p in pcore_planes(17, C_MB, rs, t, "moving",
+                                                  tiles=4, tile=t)]
+        qp = torch.full((17 * C_MB,), 31, dtype=torch.int32, device=dev)
+        tiles.append((f"rs {rs} tile {t} of 4", planes, rs, qp, 30))
+    cases.append(("17x120 tiles", 17, C_MB, tiles))
+    for what, R, C, runs in cases:
+        labels = []
+        for label, planes, rs, qp, qp_c in runs:
+            got = launch_pframe_core(*planes, qp, qp_c, rs, R, C)
+            want = local_pframe_core_plain(*planes, qp, qp_c, rs, R, C)
+            cur = to_mbs(planes[0], R, C, 16)
+            s_got = launch_search_refine_luma(cur, planes[3], rs, R, C)
+            s_want = search_refine_luma_plain(cur, planes[3], rs, R, C)
+            err = max(_core_err(got, want), *(
+                int((a.long() - b.long()).abs().max())
+                for a, b in zip(s_got, s_want)))
+            if err or any(got[k].dtype != want[k].dtype for k in want):
+                raise AssertionError(f"P-core kernel vs plain, {what} "
+                                     f"{label}: max |err| {err}")
+            max_err = max(max_err, err)
+            labels.append(label)
+        print(f"[kernel] pframe_core {what} equal=True (symbols, recon, "
+              f"sad_total; the search's qmv, pred, cost) on {len(runs)} "
+              f"runs: {', '.join(labels)}")
+
+    # 1080p at the session's operating point: rs 8, QP 30.
+    R, C, rs, qp, qp_c = R_MB, C_MB, 8, QP, 29
+    planes = pcore_planes(R, C, rs, 21, "moving")
+    planes = [p.to(dev) for p in planes]
+
+    def fresh():
+        return [p.clone() for p in planes]
+
+    def kernel(*a):
+        return launch_pframe_core(*a, qp, qp_c, rs, R, C)
+
+    def plain(*a):
+        return local_pframe_core_plain(*a, qp, qp_c, rs, R, C)
+
+    rec = {"ms": _cuda_median_ms(kernel, fresh, 30),
+           "plain_ms": _cuda_median_ms(plain, fresh, 5)}
+    cur = to_mbs(planes[0], R, C, 16)
+    rec["search_ms"] = _cuda_median_ms(
+        lambda c, r: launch_search_refine_luma(c, r, rs, R, C),
+        lambda: (cur.clone(), planes[3].clone()), 30)
+    rec["search_plain_ms"] = _cuda_median_ms(
+        lambda c, r: search_refine_luma_plain(c, r, rs, R, C),
+        lambda: (cur.clone(), planes[3].clone()), 5)
+    want = plain(*planes)
+    rec["max_abs_err"] = max(max_err, _core_err(kernel(*planes), want))
+    (rec["device_activities_per_call"], rec["device_busy_ms"],
+     activities) = _device_activities(lambda: kernel(*planes), names=True)
+    (rec["plain_device_activities_per_call"],
+     rec["plain_device_busy_ms"]) = _device_activities(lambda: plain(*planes))
+    rec.update(_pcore_bound(planes, want, rs))
+    before = local_pframe_core.launches
+    local_pframe_core(*planes, qp, qp_c, rs, R, C)
+    if local_pframe_core.launches != before + 1:
+        raise AssertionError("local_pframe_core did not count its launch")
+    print(f"[kernel] pframe_core 1080p (R={R}, C={C}, rs {rs}, QP {qp}/{qp_c}, "
+          f"a moving picture) kernel {rec['ms']:.4f} ms (median of 30, each "
+          f"on fresh inputs, the wrapper's host work inside the event pair), "
+          f"{rec['device_activities_per_call']} device activities a call "
+          f"({', '.join(activities)}) busy {rec['device_busy_ms']:.4f} ms by "
+          f"the profiler; the search alone {rec['search_ms']:.4f} ms (plain "
+          f"{rec['search_plain_ms']:.3f}); plain {rec['plain_ms']:.3f} ms "
+          f"(median of 5), {rec['plain_device_activities_per_call']} device "
+          f"activities busy {rec['plain_device_busy_ms']:.3f} ms; bound "
+          f"{rec['bound_ms']:.6f} ms by {rec['bound_by']} "
+          f"({rec['bound_bytes']} bytes, {rec['bound_ops']} operations); "
+          f"phase {time.perf_counter() - t0:.1f} s | {smi}")
+    return rec
+
+
+def _beside_plain(what: str, kernel, plain, err, *args, **kw) -> tuple:
+    """ms of a kernel's raw launch and of its plain version on the same
+    inputs (mean of 3 after a warm-up, each synchronised), after holding
+    them equal (err(kernel's, plain's) == 0); and the kernel's result."""
+    import torch
+
+    box = {}
+    t_kernel = _cuda_ms(lambda: box.update(kernel=kernel(*args, **kw)), 3)
+    t_plain = _cuda_ms(lambda: box.update(plain=plain(*args, **kw)), 3)
+    torch.cuda.synchronize()
+    if err(box["kernel"], box["plain"]):
+        raise AssertionError(f"{what}: kernel and plain version differ")
+    return t_kernel, t_plain, box["kernel"]
+
+
+def _core_beside_plain(what: str, *args) -> tuple:
+    from media_tpu_torch.pipeline.pframe_core import (
+        launch_pframe_core, local_pframe_core_plain)
+
+    return _beside_plain(what, launch_pframe_core, local_pframe_core_plain,
+                         _core_err, *args)
+
+
+def _pack_beside_plain(what: str, *args, **kw) -> tuple:
     from media_tpu_torch.entropy.device_cavlc import (
         launch_pack_pslice, pack_pslice_plain)
 
-    box = {}
-    t_kernel = _cuda_ms(lambda: box.update(
-        kernel=launch_pack_pslice(*args, **kw)), 3)
-    t_plain = _cuda_ms(lambda: box.update(
-        plain=pack_pslice_plain(*args, **kw)), 3)
-    torch.cuda.synchronize()
-    if _stream_err(box["kernel"], box["plain"]):
-        raise AssertionError(f"{what}: packer kernel and plain differ")
-    return t_kernel, t_plain, box["kernel"]
+    return _beside_plain(what, launch_pack_pslice, pack_pslice_plain,
+                         _stream_err, *args, **kw)
 
 
 def _timed(fn):
@@ -1566,30 +1833,25 @@ def _stage_split(sess, frame_buf, smi: str):
     on its own (outside the pipelined session loop)."""
     import torch
 
-    from media_tpu_torch.ops.pad import edge_pad
     from media_tpu_torch.ops.transform import chroma_qp
     from media_tpu_torch.ops.deblock_wave import launch_deblock_wave
     from media_tpu_torch.pipeline.deblock_apply import (
         build_meta, deblock_pframe_from_symbols, pframe_bs_grids)
-    from media_tpu_torch.pipeline.pframe_core import (
-        INTERP_HALO, local_pframe_core, unpack_symbols_device)
+    from media_tpu_torch.pipeline.pframe_core import unpack_symbols_device
 
     enc = sess._frame_encoder
     R, C = enc.n_rows, enc.n_cols
     qp, qp_c, rs = QP, int(chroma_qp(QP)), 8
     y, u, v = (torch.tensor(p, device="cuda") for p in sess._planes(frame_buf))
-    ref = [p.to(torch.int32) for p in sess.recon]
-    ext = (edge_pad(ref[0], rs + INTERP_HALO, rs + INTERP_HALO, 0, 0),
-           edge_pad(ref[1], rs // 2 + 2, rs // 2 + 2, 0, 0),
-           edge_pad(ref[2], rs // 2 + 2, rs // 2 + 2, 0, 0))
-    cur = [p.to(torch.int32) for p in (y, u, v)]
     box = {}
 
-    def core():
-        box["out"] = local_pframe_core(*cur, *ext, qp, qp_c, rs, R, C)
+    def prep():  # what FrameEncoder._pframe_core does before the core
+        box["args"] = ([p.to(torch.int32) for p in (y, u, v)]
+                       + list(enc._ref_ext(sess.recon, rs)))
 
-    t_core = _cuda_ms(core, 3)
-    out = box["out"]
+    t_prep = _cuda_ms(prep, 3)
+    t_core, t_core_plain, out = _core_beside_plain(
+        "constant-QP P frame", *box["args"], qp, qp_c, rs, R, C)
     cap = sess._device_cap()
     t_pack, t_pack_plain, (stream, bits) = _pack_beside_plain(
         "constant-QP P frame", *unpack_symbols_device(out["symbols"]), cap)
@@ -1608,12 +1870,16 @@ def _stage_split(sess, frame_buf, smi: str):
     words = stream[: (nbits + 31) // 32 + 1].cpu().numpy().astype(np.uint32)
     sess._pslice_au_packed(words, nbits)
     t_host = (time.perf_counter() - t0) * 1e3
-    print(f"[stages] {WIDTH}x{HEIGHT} P frame ms: p_core {t_core:.3f} cavlc_pack "
+    print(f"[stages] {WIDTH}x{HEIGHT} P frame ms: p_core {t_prep + t_core:.3f} "
+          f"(int32 casts and row pads {t_prep:.3f}, the kernel {t_core:.3f}; "
+          f"plain {t_core_plain:.3f}, same outputs) cavlc_pack "
           f"{t_pack:.3f} (the kernel; plain {t_pack_plain:.3f}, same stream "
           f"and {nbits} bits) deblock {t_deblock:.3f} (of which the kernel, "
           f"median of 20 on this frame's planes, {t_kernel:.4f}) host_au "
           f"{t_host:.3f} | {smi}")
-    return {"ms_clip_frame": t_pack, "plain_ms_clip_frame": t_pack_plain}
+    return ({"ms_clip_frame": t_pack, "plain_ms_clip_frame": t_pack_plain},
+            {"ms_clip_frame": t_core, "plain_ms_clip_frame": t_core_plain,
+             "prep_ms_clip_frame": t_prep})
 
 
 def phase_main_path(smi: str, golden: dict, bufs):
@@ -1714,7 +1980,7 @@ def phase_main_path(smi: str, golden: dict, bufs):
     print(f"[main] IDR through the Python I-slice writer {t_idr_py * 1e3:.1f} "
           f"ms against {t_idr * 1e3:.1f} ms, same bytes | {smi}")
 
-    pack_rec = _stage_split(sess, bufs[2 * N_CQ_P + 1], smi)
+    pack_rec, core_rec = _stage_split(sess, bufs[2 * N_CQ_P + 1], smi)
 
     # The CPU path is the one the tests hold to the JAX package at small
     # sizes; CUDA must give the same bytes.
@@ -1728,7 +1994,8 @@ def phase_main_path(smi: str, golden: dict, bufs):
     if out[0] != out[1]:
         raise AssertionError("64x48 AUs differ between cuda and cpu")
     print("[main] 64x48 IDR + 4 P: cuda AUs == cpu AUs")
-    return launches, aus, recon_idr, recon_run, staged, recon, pack_rec
+    return (launches, aus, recon_idr, recon_run, staged, recon, pack_rec,
+            core_rec)
 
 
 def _split(timings, idr: bool) -> str:
@@ -1913,12 +2180,14 @@ def _rate_stage_split(sess, frame_buf, qp_f: float, smi: str):
     frame = [torch.tensor(p, device=dev) for p in sess._planes(frame_buf)]
     box = {}
 
-    def core():
-        box["out"] = enc._pframe_core(sess.recon, frame, qp_map,
-                                      chroma_qp_device(qp_map), 8)
+    def prep():  # what FrameEncoder._pframe_core does before the core
+        box["args"] = ([p.to(torch.int32) for p in frame]
+                       + list(enc._ref_ext(sess.recon, 8)))
 
-    t_core = _cuda_ms(core, 3)
-    out = box["out"]
+    t_prep = _cuda_ms(prep, 3)
+    t_core, t_core_plain, out = _core_beside_plain(
+        "per-MB-QP P frame", *box["args"], qp_map, chroma_qp_device(qp_map),
+        8, R, C)
     mv, luma, cdc, cac = unpack_symbols_device(out["symbols"])
     cap = sess._device_cap()
 
@@ -1946,14 +2215,19 @@ def _rate_stage_split(sess, frame_buf, qp_f: float, smi: str):
     au = sess._cabac_au_from_cavlc_stream(words, nbits, int(qp_f), 1)
     t_host = (time.perf_counter() - t0) * 1e3
     print(f"[stages] {WIDTH}x{HEIGHT} P frame of the CBR + CABAC path with "
-          f"per-MB QP {int(qp_f)}/{int(qp_f) + 1} ms: p_core {t_core:.3f} "
+          f"per-MB QP {int(qp_f)}/{int(qp_f) + 1} ms: p_core "
+          f"{t_prep + t_core:.3f} (int32 casts and row pads {t_prep:.3f}, the "
+          f"kernel {t_core:.3f}; plain {t_core_plain:.3f}, same outputs) "
           f"cavlc_pack {t_pack:.3f} (the kernel; plain {t_pack_plain:.3f}, "
           f"same stream) deblock {t_deblock:.3f} (of which the "
           f"kernel in per-MB-QP mode, median of 20 on this frame's planes, "
           f"{t_kernel:.4f}) host download + C++ transcode + AU {t_host:.3f} "
           f"({nbits} CAVLC bits -> {len(au)} B) | {smi}")
-    return t_kernel, {"ms_per_mb_qp_clip_frame": t_pack,
-                      "plain_ms_per_mb_qp_clip_frame": t_pack_plain}
+    return (t_kernel, {"ms_per_mb_qp_clip_frame": t_pack,
+                       "plain_ms_per_mb_qp_clip_frame": t_pack_plain},
+            {"ms_per_mb_qp_clip_frame": t_core,
+             "plain_ms_per_mb_qp_clip_frame": t_core_plain,
+             "prep_ms_per_mb_qp_clip_frame": t_prep})
 
 
 def phase_rate_path(smi: str, golden: dict, bufs, names):
@@ -3064,7 +3338,7 @@ def phase_gop_dispatch(smi: str) -> tuple:
     reset_gop_state per GOP, the thread dispatcher, and the process
     dispatcher with 1, 2 and 4 workers on the one card, every AU list equal
     to the sequential one. Returns the whole-frame kernel's launches and the
-    packer kernel's launches in the worker processes."""
+    packer and P-core kernels' launches in the worker processes."""
     import torch
 
     from media_tpu_torch.ops.deblock_wave import deblock_wave
@@ -3116,21 +3390,24 @@ def phase_gop_dispatch(smi: str) -> tuple:
           f"(busiest worker {rep.busiest_worker_s:.2f} s of {rep.wall_s:.2f} "
           f"s) | {smi}")
 
-    worker_packs = 0
+    worker_packs = worker_cores = 0
     for k in DISPATCH_PROCS:
         aus, rep = dispatch_multiprocess(
             cfg_kwargs, frames, GOP_DISPATCH, n_procs=k,
             use_distributed=(k == 4), prewarm=True, device="cuda")
         if (aus != seq or rep.kernel_launches != n
                 or rep.pack_launches != n - GOPS_DISPATCH
+                or rep.core_launches != n - GOPS_DISPATCH
                 or rep.distributed != (k == 4)):
             raise AssertionError(
                 f"gop {k} processes: AUs equal {aus == seq}, "
-                f"{rep.kernel_launches} deblock and {rep.pack_launches} "
-                f"packer launches for {n} frames, process group "
+                f"{rep.kernel_launches} deblock, {rep.pack_launches} "
+                f"packer and {rep.core_launches} P-core launches for {n} "
+                f"frames, process group "
                 f"{rep.distributed}")
         launches += rep.kernel_launches
         worker_packs += rep.pack_launches
+        worker_cores += rep.core_launches
         per = {}
         for g in rep.gops:
             per[g.worker] = per.get(g.worker, 0.0) + g.compute_s
@@ -3143,7 +3420,7 @@ def phase_gop_dispatch(smi: str) -> tuple:
               f"dispatch_overhead {overhead:.4f}, prewarm_s "
               f"{rep.prewarm_s:.3f}, wall with start-up {rep.wall_s:.2f} s "
               f"({mps}) | {smi}")
-    return launches, worker_packs
+    return launches, worker_packs, worker_cores
 
 
 def main() -> None:
@@ -3155,41 +3432,60 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     with open(os.path.join(ROOT, "media_tpu_torch", "golden_1080p.json")) as f:
         golden = json.load(f)
-    phase_build()
-    krec = phase_kernel(smi)
-    krec_step = phase_kernel_step(smi)
-    krec_pack = phase_kernel_pack(smi)
+    seconds = {}  # phase -> seconds of its run
+
+    def timed(name, phase, *args):
+        t0 = time.perf_counter()
+        out = phase(*args)
+        seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - t0
+        return out
+
+    timed("build", phase_build)
+    krec = timed("kernel", phase_kernel, smi)
+    krec_step = timed("kernel_step", phase_kernel_step, smi)
+    krec_pack = timed("kernel_pack", phase_kernel_pack, smi)
+    krec_pcore = timed("kernel_pcore", phase_kernel_pcore, smi)
     if "--kernels" in sys.argv[1:]:
         return
     from media_tpu_torch.entropy.device_cavlc import pack_pslice_device
+    from media_tpu_torch.pipeline.pframe_core import (
+        local_pframe_core, search_refine_luma)
 
-    packs = {}  # phase -> the packer kernel's launches in its run
+    # phase -> the launches in its run of the packer kernel, of the P-core
+    # kernel as the P core, and of the P-core kernel as the search alone.
+    packs, cores, searches = {}, {}, {}
 
     def counted(name, phase, *args):
-        """Run a phase with the packer's launch count set to 0 just before
-        and read just after (its stage splits time the kernel through the
-        uncounted launch_pack_pslice)."""
-        pack_pslice_device.launches = 0
-        out = phase(*args)
-        packs[name] = packs.get(name, 0) + pack_pslice_device.launches
+        """Run a phase with the launch counts set to 0 just before and read
+        just after (its stage splits time the kernels through the uncounted
+        launch_pack_pslice and launch_pframe_core)."""
+        pack_pslice_device.launches = local_pframe_core.launches = 0
+        search_refine_luma.launches = 0
+        out = timed(name, phase, *args)
+        for count, wrapper in ((packs, pack_pslice_device),
+                               (cores, local_pframe_core),
+                               (searches, search_refine_luma)):
+            count[name] = count.get(name, 0) + wrapper.launches
         return out
 
     bufs, clip_sha = clip_i420()
     if clip_sha != golden["clip_sha256"]:
         raise AssertionError(f"input clip digest {clip_sha} != recorded "
                              f"{golden['clip_sha256']} (numpy clip differs)")
-    phase_native(smi, bufs)
-    (enc_launches, aus, recon_idr, recon_run, staged, recon_last,
-     pack_rec) = counted("encode_path", phase_main_path, smi, golden, bufs)
+    timed("native", phase_native, smi, bufs)
+    (enc_launches, aus, recon_idr, recon_run, staged, recon_last, pack_rec,
+     core_rec) = counted("encode_path", phase_main_path, smi, golden, bufs)
     dec_launches, step_launches, cq_dec, cq_frames = counted(
         "decode_path", phase_decode_path, smi, golden, aus, recon_idr,
         recon_run)
     rate_launches, keep = counted("rate_path", phase_rate_path, smi, golden,
                                   bufs, RATE_RUNS_PHASE7)
     sess, _run, got = keep["cbr_cabac_aq"]
-    t_per_mb, rate_pack_rec = _rate_stage_split(
-        sess, bufs[5], got["rc_final"]["qp"], smi)
+    t_per_mb, rate_pack_rec, rate_core_rec = timed(
+        "rate_stage_split", _rate_stage_split, sess, bufs[5],
+        got["rc_final"]["qp"], smi)
     pack_rec.update(rate_pack_rec)
+    core_rec.update(rate_core_rec)
     run = keep["cbr_cabac"][1]
     cabac_launches, _frames = counted(
         "cabac_decode_path", phase_cabac_decode, smi,
@@ -3208,7 +3504,7 @@ def main() -> None:
     i4_stream = (run["aus"] + run["staged"], [_host(p) for p in sess.recon],
                  i4_frames)
     del keep, sess, run, _got, i4_frames
-    _i4_idr_split(smi, bufs)
+    timed("i4x4_idr_split", _i4_idr_split, smi, bufs)
     slice_launches, slice_step_launches = counted(
         "multislice", phase_multislice, smi, golden, bufs)
     bgop_launches = counted("bgop", phase_bgop, smi, golden, bufs)
@@ -3222,15 +3518,29 @@ def main() -> None:
     oracle_launches = counted("oracle_phase", phase_oracle, smi, golden)
     counted("hevc", phase_hevc, smi, golden)
     sharded_launches = counted("sharded", phase_sharded, smi, golden, bufs)
-    gop_launches, worker_packs = counted("gop_dispatch", phase_gop_dispatch,
-                                         smi)
+    gop_launches, worker_packs, worker_cores = counted(
+        "gop_dispatch", phase_gop_dispatch, smi)
     packs["gop_dispatch"] += worker_packs  # the spawned workers' launches
+    cores["gop_dispatch"] += worker_cores
     # The paths that code P slices on the device: each must have run
-    # through the kernel.
+    # through the packer kernel.
     idle = [k for k in ("encode_path", "rate_path", "i4x4_operating_point",
                         "sharded", "gop_dispatch") if not packs[k]]
     if idle:
         raise AssertionError(f"packer kernel never launched in {idle}")
+    # The phases that encode P frames on the card: each P frame through the
+    # P-core kernel; the B-GOP's B pictures through its search alone.
+    idle = [k for k in ("encode_path", "rate_path", "i4x4_operating_point",
+                        "multislice", "bgop", "api", "capi", "oracle_phase",
+                        "sharded", "gop_dispatch") if not cores[k]]
+    if idle or not searches["bgop"]:
+        raise AssertionError(f"P-core kernel never launched in {idle}, "
+                             f"{searches['bgop']} searches in the B-GOP")
+    print("[time] seconds by phase: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in seconds.items()))
+    print("[kernel] pframe_core launches by phase: " + ", ".join(
+        f"{k} {v}" for k, v in cores.items()) + "; the search alone: "
+        + ", ".join(f"{k} {v}" for k, v in searches.items()))
     print("[kernel] device_cavlc_pack launches by phase: " + ", ".join(
         f"{k} {v}" for k, v in packs.items()))
     print(json.dumps({"kernels": [
@@ -3267,7 +3577,14 @@ def main() -> None:
          "replaces": "media_tpu/entropy/device_cavlc.py:620 (XLA)",
          "launches": sum(packs.values()),
          **{f"launches_{k}": v for k, v in packs.items()},
-         **krec_pack, **pack_rec}]}))
+         **krec_pack, **pack_rec},
+        {"name": "pframe_core", "route": "cuda",
+         "source": "media_tpu_torch/csrc/pframe_core.cu",
+         "replaces": "media_tpu/pipeline/pframe_core.py:211 (XLA)",
+         "launches": sum(cores.values()) + sum(searches.values()),
+         **{f"launches_{k}": v for k, v in cores.items()},
+         **{f"search_launches_{k}": v for k, v in searches.items()},
+         **krec_pcore, **core_rec}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

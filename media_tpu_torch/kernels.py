@@ -94,7 +94,21 @@ def load() -> ctypes.CDLL:
     lib.deblock_wave_step_inplace_launch.restype = ci
     lib.media_cuda_error_string.argtypes = [ci]
     lib.media_cuda_error_string.restype = ctypes.c_char_p
-    return bind_device_cavlc(lib)
+    return bind_pframe_core(bind_device_cavlc(lib))
+
+
+def bind_pframe_core(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """The C signatures of the P core's entry points (csrc/pframe_core.cu;
+    its host build for the tests, csrc/pframe_core_emu.cpp, has the
+    same)."""
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.pframe_core_launch.argtypes = (
+        [vp] * 7 + [vp, ci, ci, vp, ci, ci] + [vp] * 8 + [ci, ci, ci, vp])
+    lib.pframe_core_launch.restype = ci
+    lib.pframe_search_launch.argtypes = (
+        [vp, vp, ctypes.c_longlong] + [vp] * 3 + [ci, ci, ci, vp])
+    lib.pframe_search_launch.restype = ci
+    return lib
 
 
 def bind_device_cavlc(lib: ctypes.CDLL) -> ctypes.CDLL:

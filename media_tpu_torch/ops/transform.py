@@ -56,8 +56,9 @@ _POS_CLASS = np.array(
     dtype=np.int32,
 )
 
-MF_4x4 = _MF_CLASS[:, _POS_CLASS]  # (6, 4, 4)
-V_4x4 = _V_CLASS[:, _POS_CLASS]  # (6, 4, 4)
+# (6, 4, 4), C-ordered: the P-core kernel reads the tables' memory.
+MF_4x4 = np.ascontiguousarray(_MF_CLASS[:, _POS_CLASS])
+V_4x4 = np.ascontiguousarray(_V_CLASS[:, _POS_CLASS])
 
 # Chroma QP mapping (spec Table 8-12): qPc as a function of clip3(0,51,qPi).
 CHROMA_QP_TABLE = np.array(

@@ -58,6 +58,9 @@ class MpDispatchReport:
     # CAVLC packer kernel launches of the same GOPs
     # (entropy/device_cavlc.py:pack_pslice_device.launches; 0 on the CPU).
     pack_launches: int = 0
+    # P-core kernel launches of the same GOPs
+    # (pipeline/pframe_core.py:local_pframe_core.launches; 0 on the CPU).
+    core_launches: int = 0
 
     @property
     def compute_s_total(self) -> float:
@@ -129,6 +132,7 @@ def _worker_main(widx: int, n_procs: int, coord: str | None,
     from ..entropy.device_cavlc import pack_pslice_device
     from ..ops.deblock_wave import deblock_wave
     from ..pipeline.codec import EncoderConfig, EncoderSession
+    from ..pipeline.pframe_core import local_pframe_core
     from ..utils import yuv
 
     session = EncoderSession(EncoderConfig(**cfg_kwargs), device=device)
@@ -145,7 +149,9 @@ def _worker_main(widx: int, n_procs: int, coord: str | None,
     # P-chunk sizes of this gop_size).
     session.encode_frames([warm] * max(2, min(cfg.gop_size, 64)))
     session.reset_gop_state(0)
-    deblock_wave.launches = pack_pslice_device.launches = 0  # measured GOPs only
+    # Measured GOPs only.
+    deblock_wave.launches = pack_pslice_device.launches = 0
+    local_pframe_core.launches = 0
     result_queue.put(("ready", widx, distributed))
     while True:
         item = gop_queue.get()
@@ -160,7 +166,7 @@ def _worker_main(widx: int, n_procs: int, coord: str | None,
     if distributed:
         dist.destroy_process_group()
     result_queue.put(("done", widx, deblock_wave.launches,
-                      pack_pslice_device.launches))
+                      pack_pslice_device.launches, local_pframe_core.launches))
 
 
 def dispatch_multiprocess(cfg_kwargs: dict, frames: list, gop_size: int,
@@ -220,7 +226,7 @@ def dispatch_multiprocess(cfg_kwargs: dict, frames: list, gop_size: int,
     results: dict[int, list] = {}
     stats: list[MpGopStats] = []
     distributed = False
-    launches = packs = 0
+    launches = packs = cores = 0
     ready = done = 0
     try:
         # Wait for EVERY worker's ready (post-warmup) before enqueueing any
@@ -248,6 +254,7 @@ def dispatch_multiprocess(cfg_kwargs: dict, frames: list, gop_size: int,
                 done += 1
                 launches += msg[2]
                 packs += msg[3]
+                cores += msg[4]
             elif msg[0] == "log":
                 pass
         for p in procs:
@@ -269,5 +276,6 @@ def dispatch_multiprocess(cfg_kwargs: dict, frames: list, gop_size: int,
                               prewarm_s=prewarm_s, n_procs=n_procs,
                               distributed=distributed,
                               gops=sorted(stats, key=lambda s: s.gop_index),
-                              kernel_launches=launches, pack_launches=packs)
+                              kernel_launches=launches, pack_launches=packs,
+                              core_launches=cores)
     return out, report

@@ -15,9 +15,17 @@ Symbol layout per MB (int16, SYMBOLS_PER_MB total):
 Where the JAX package extracts per-MB windows with one-hot bf16 matmuls (an
 element gather serialises on a TPU), this port indexes the padded plane
 directly: the windows are the same samples.
+
+local_pframe_core and search_refine_luma run their plain versions
+(local_pframe_core_plain, search_refine_luma_plain: some 770 eager
+launches a 1080p frame) on CPU tensors and launch the hand-written kernel
+csrc/pframe_core.cu on CUDA tensors.
 """
 
 from __future__ import annotations
+
+import ctypes
+import threading
 
 import numpy as np
 import torch
@@ -210,8 +218,10 @@ def refine_subpel(cur, plane_g, plane_b, plane_h, plane_j, mv_full, R, C,
             best_cost)
 
 
-def search_refine_luma(cur, ref_y_ext, search_range: int, R: int, C: int):
-    """Full-pel search + quarter-pel refinement against one reference.
+def search_refine_luma_plain(cur, ref_y_ext, search_range: int, R: int,
+                             C: int):
+    """Full-pel search + quarter-pel refinement against one reference, in
+    plain PyTorch (search_refine_luma's CPU path and the kernel's spec).
 
     cur: (N, 16, 16) int32 MBs; ref_y_ext: reference luma extended by
     search_range + INTERP_HALO rows above and below. Returns (qmv (N, 2)
@@ -250,9 +260,11 @@ def _chroma_code(o_c, pred_c, qp_c):
     return z2.reshape(-1, 4), z_cac, recon_c
 
 
-def local_pframe_core(cur_y, cur_u, cur_v, ref_y_ext, ref_u_ext, ref_v_ext,
-                      qp, qp_c, search_range: int, n_rows: int, n_cols: int):
-    """P-frame encode of an (n_rows, n_cols) MB grid.
+def local_pframe_core_plain(cur_y, cur_u, cur_v, ref_y_ext, ref_u_ext,
+                            ref_v_ext, qp, qp_c, search_range: int,
+                            n_rows: int, n_cols: int):
+    """P-frame encode of an (n_rows, n_cols) MB grid, in plain PyTorch
+    (local_pframe_core's CPU path and the kernel's spec).
 
     qp, qp_c: luma and chroma QP as Python ints, as 0-d tensors (a QP the
     rate loop computed on the device) or as per-MB (R*C,) tensors.
@@ -270,7 +282,7 @@ def local_pframe_core(cur_y, cur_u, cur_v, ref_y_ext, ref_u_ext, ref_v_ext,
     cu = to_mbs(cur_u, R, C, 8).to(torch.int32)
     cv = to_mbs(cur_v, R, C, 8).to(torch.int32)
 
-    qmv, pred, cost = search_refine_luma(cur, ref_y_ext, rs, R, C)
+    qmv, pred, cost = search_refine_luma_plain(cur, ref_y_ext, rs, R, C)
 
     pred_u = mc_chroma_ext(ref_u_ext, qmv, R, C, halo_c)
     pred_v = mc_chroma_ext(ref_v_ext, qmv, R, C, halo_c)
@@ -297,6 +309,168 @@ def local_pframe_core(cur_y, cur_u, cur_v, ref_y_ext, ref_u_ext, ref_v_ext,
         "recon_v": from_mbs(rec_v, R, C, 8).to(torch.uint8),
         "sad_total": cost.sum(dtype=torch.int32),
     }
+
+
+# ---- the CUDA kernel ---------------------------------------------------------
+
+MAX_KERNEL_RANGE = 32  # csrc/pframe_core.cuh kMaxRange: its shared layout
+
+
+def _kernel_plane(x, shape, dev, what: str):
+    """x as the kernel reads a plane: int32 on `dev`, unit column stride."""
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{what} of shape {tuple(x.shape)}, expected "
+                         f"{tuple(shape)}")
+    if x.device != dev:
+        raise ValueError(f"{what} on {x.device}, the current plane on {dev}")
+    x = x.to(torch.int32)
+    return x if x.stride(-1) == 1 else x.contiguous()
+
+
+def _kernel_qp(qp, n: int, dev, what: str):
+    """(int32 tensor or None, stride, value): a QP as the kernel reads it,
+    qp[mb * stride] from the device or the value. Reads nothing back from
+    the device."""
+    if not torch.is_tensor(qp) or (qp.dim() == 0 and qp.device != dev
+                                   and qp.device.type == "cpu"):
+        return None, 0, int(qp)
+    if qp.dim() == 0:
+        return qp.to(device=dev, dtype=torch.int32).reshape(1), 0, 0
+    if qp.numel() != n:
+        raise ValueError(f"{what} of shape {tuple(qp.shape)} for {n} MBs")
+    return qp.to(device=dev, dtype=torch.int32).reshape(n).contiguous(), 1, 0
+
+
+def _check_range(rs: int) -> None:
+    if not 0 <= rs <= MAX_KERNEL_RANGE:
+        raise ValueError(f"search range {rs}: the kernel takes 0 to "
+                         f"{MAX_KERNEL_RANGE}")
+
+
+def _ptr(t):
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
+
+
+def launch_pframe_core(cur_y, cur_u, cur_v, ref_y_ext, ref_u_ext, ref_v_ext,
+                       qp, qp_c, search_range: int, n_rows: int,
+                       n_cols: int):
+    """Launch the P-core kernel (csrc/pframe_core.cu) on the current stream
+    of the tensors' device, with that device current: no count. Returns what
+    local_pframe_core_plain returns, in fresh tensors; reads nothing back
+    from the device (a device QP is read by the kernel)."""
+    from .. import kernels
+
+    R, C, rs = int(n_rows), int(n_cols), int(search_range)
+    _check_range(rs)
+    dev = cur_y.device
+    hy, hc = rs + INTERP_HALO, rs // 2 + 2
+    planes = [_kernel_plane(x, shape, dev, what) for x, shape, what in (
+        (cur_y, (16 * R, 16 * C), "cur_y"), (cur_u, (8 * R, 8 * C), "cur_u"),
+        (cur_v, (8 * R, 8 * C), "cur_v"),
+        (ref_y_ext, (16 * R + 2 * hy, 16 * C), "ref_y_ext"),
+        (ref_u_ext, (8 * R + 2 * hc, 8 * C), "ref_u_ext"),
+        (ref_v_ext, (8 * R + 2 * hc, 8 * C), "ref_v_ext"))]
+    q, q_stride, q_value = _kernel_qp(qp, R * C, dev, "qp")
+    qc, qc_stride, qc_value = _kernel_qp(qp_c, R * C, dev, "qp_c")
+    tb = T._tables(dev)
+    out = {
+        "symbols": torch.empty((R, C, SYMBOLS_PER_MB), dtype=torch.int16,
+                               device=dev),
+        "recon_y": torch.empty((16 * R, 16 * C), dtype=torch.uint8,
+                               device=dev),
+        "recon_u": torch.empty((8 * R, 8 * C), dtype=torch.uint8, device=dev),
+        "recon_v": torch.empty((8 * R, 8 * C), dtype=torch.uint8, device=dev),
+        "sad_total": torch.empty((), dtype=torch.int32, device=dev),
+    }
+    strides = (ctypes.c_int64 * 6)(*(p.stride(0) for p in planes))
+    lib = kernels.load()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.pframe_core_launch(
+            *(_ptr(p) for p in planes), ctypes.cast(strides, ctypes.c_void_p),
+            _ptr(q), q_stride, q_value, _ptr(qc), qc_stride, qc_value,
+            _ptr(tb["mf"]), _ptr(tb["v"]), _ptr(tb["zz"]),
+            *(_ptr(out[k]) for k in ("symbols", "recon_y", "recon_u",
+                                     "recon_v", "sad_total")),
+            R, C, rs, ctypes.c_void_p(stream))
+    if err:
+        raise RuntimeError(f"pframe_core kernel launch failed: "
+                           f"{kernels.error_string(err)}")
+    return out
+
+
+def launch_search_refine_luma(cur, ref_y_ext, search_range: int, R: int,
+                              C: int):
+    """Launch the search alone (the same kernel without its coding stages)
+    on the current stream of the tensors' device: no count. Returns (qmv,
+    pred, cost) as search_refine_luma_plain does, in int32."""
+    from .. import kernels
+
+    R, C, rs = int(R), int(C), int(search_range)
+    _check_range(rs)
+    dev = cur.device
+    n = R * C
+    if tuple(cur.shape) != (n, 16, 16):
+        raise ValueError(f"cur of shape {tuple(cur.shape)}, expected "
+                         f"{(n, 16, 16)}")
+    cur = cur.to(torch.int32).contiguous()
+    ref = _kernel_plane(ref_y_ext, (16 * R + 2 * (rs + INTERP_HALO), 16 * C),
+                        dev, "ref_y_ext")
+    qmv = torch.empty((n, 2), dtype=torch.int32, device=dev)
+    pred = torch.empty((n, 16, 16), dtype=torch.int32, device=dev)
+    cost = torch.empty((n,), dtype=torch.int32, device=dev)
+    lib = kernels.load()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.pframe_search_launch(
+            _ptr(cur), _ptr(ref), ctypes.c_longlong(ref.stride(0)), _ptr(qmv),
+            _ptr(pred), _ptr(cost), R, C, rs, ctypes.c_void_p(stream))
+    if err:
+        raise RuntimeError(f"pframe_core search launch failed: "
+                           f"{kernels.error_string(err)}")
+    return qmv, pred, cost
+
+
+def search_refine_luma(cur, ref_y_ext, search_range: int, R: int, C: int):
+    """Full-pel search + quarter-pel refinement against one reference:
+    (qmv (N, 2) quarter-pel, pred (N, 16, 16), cost (N,)), as
+    search_refine_luma_plain defines them. On CPU tensors it runs the plain
+    version; on CUDA tensors it launches the kernel on the current stream
+    and counts the call in `search_refine_luma.launches`."""
+    if cur.device.type == "cpu":
+        return search_refine_luma_plain(cur, ref_y_ext, search_range, R, C)
+    out = launch_search_refine_luma(cur, ref_y_ext, search_range, R, C)
+    with _COUNT_LOCK:  # sessions in several threads call it
+        search_refine_luma.launches += 1
+    return out
+
+
+def local_pframe_core(cur_y, cur_u, cur_v, ref_y_ext, ref_u_ext, ref_v_ext,
+                      qp, qp_c, search_range: int, n_rows: int, n_cols: int):
+    """P-frame encode of an (n_rows, n_cols) MB grid, as
+    local_pframe_core_plain defines it: {"symbols" (R, C, 386) int16,
+    "recon_y/u/v" uint8 planes, "sad_total" () int32}.
+
+    qp, qp_c: luma and chroma QP as Python ints, as 0-d tensors (a QP the
+    rate loop computed on the device) or as per-MB (R*C,) tensors. ref_y_ext
+    has `search_range + INTERP_HALO` extra rows above/below, ref_[uv]_ext
+    `search_range // 2 + 2`; their rows are read as given (a row tile's
+    halo is its neighbour's rows). On CPU tensors it runs the plain
+    version; on CUDA tensors it launches the kernel on the current stream
+    and counts the call in `local_pframe_core.launches`."""
+    args = (cur_y, cur_u, cur_v, ref_y_ext, ref_u_ext, ref_v_ext, qp, qp_c,
+            search_range, n_rows, n_cols)
+    if cur_y.device.type == "cpu":
+        return local_pframe_core_plain(*args)
+    out = launch_pframe_core(*args)
+    with _COUNT_LOCK:
+        local_pframe_core.launches += 1
+    return out
+
+
+search_refine_luma.launches = 0
+local_pframe_core.launches = 0
+_COUNT_LOCK = threading.Lock()
 
 
 B_SYMBOLS_PER_MB = 4 + 256 + 8 + 120  # = 388: mv0, mv1, luma, cdc, cac

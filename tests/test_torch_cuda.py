@@ -666,3 +666,113 @@ def test_device_cavlc_kernel_in_two_threads(cuda_device):
     for t in threads:
         t.join()
     assert errors == []
+
+
+# ------------------------------------------------------ the P-frame core kernel
+
+
+# One MB, one row, one column, a small grid, 1080p and 4K (more MBs than
+# the card has SMs, many times over).
+@pytest.mark.parametrize("R,C", [(1, 1), (1, 5), (5, 1), (6, 9), (68, 120),
+                                 (135, 240)])
+def test_pframe_core_kernel_matches_plain(cuda_device, R, C):
+    """Every output of local_pframe_core and search_refine_luma through the
+    kernel equals the plain version's on the same device tensors; the
+    kernel calls read nothing back from the device."""
+    from chip_smoke import pcore_runs
+    from media_tpu_torch.pipeline import pframe_core as pc
+
+    runs = pcore_runs(R, C, cuda_device)
+    label, planes, rs, qp, qp_c = runs[0]
+    pc.local_pframe_core(*planes, qp, qp_c, rs, R, C)  # build, tables cached
+    before = (pc.local_pframe_core.launches, pc.search_refine_luma.launches)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = [(pc.local_pframe_core(*planes, qp, qp_c, rs, R, C),
+                pc.search_refine_luma(pc.to_mbs(planes[0], R, C, 16),
+                                      planes[3], rs, R, C))
+               for _, planes, rs, qp, qp_c in runs]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert (pc.local_pframe_core.launches, pc.search_refine_luma.launches) == (
+        before[0] + len(runs), before[1] + len(runs))
+    for (label, planes, rs, qp, qp_c), (core, search) in zip(runs, got):
+        want = pc.local_pframe_core_plain(*planes, qp, qp_c, rs, R, C)
+        for k, v in want.items():
+            assert core[k].device == planes[0].device, (label, k)
+            assert core[k].dtype == v.dtype, (label, k)
+            assert torch.equal(core[k], v), (label, k)
+        want = pc.search_refine_luma_plain(pc.to_mbs(planes[0], R, C, 16),
+                                           planes[3], rs, R, C)
+        for name, a, b in zip(("qmv", "pred", "cost"), search, want):
+            assert a.dtype == b.dtype and torch.equal(a, b), (label, name)
+
+
+def test_pframe_core_kernel_on_a_row_tile(cuda_device):
+    """A 17-row tile of a 1080p picture cut in four, whose extension rows
+    are its neighbours' rows (parallel/sharding.py's halo exchange)."""
+    from chip_smoke import pcore_planes
+    from media_tpu_torch.pipeline import pframe_core as pc
+
+    R, C = 17, 120
+    for rs, tile in ((8, 1), (4, 2)):
+        planes = [p.to(cuda_device) for p in pcore_planes(
+            R, C, rs, tile, "moving", tiles=4, tile=tile)]
+        qp = torch.full((R * C,), 31, dtype=torch.int32, device=cuda_device)
+        got = pc.local_pframe_core(*planes, qp, 30, rs, R, C)
+        want = pc.local_pframe_core_plain(*planes, qp, 30, rs, R, C)
+        for k, v in want.items():
+            assert torch.equal(got[k], v), (rs, k)
+
+
+def test_pframe_core_kernel_on_its_tensors_device(cuda_device):
+    from chip_smoke import pcore_planes
+    from media_tpu_torch.pipeline import pframe_core as pc
+
+    torch.cuda.set_device(0)
+    R, C, rs = 3, 4, 8
+    planes = pcore_planes(R, C, rs, 5)
+    want = pc.local_pframe_core_plain(*planes, 30, 29, rs, R, C)
+    for dev in _launch_devices():
+        got = pc.local_pframe_core(*(p.to(dev) for p in planes), 30,
+                                   torch.tensor(29, device=dev), rs, R, C)
+        assert torch.cuda.current_device() == 0
+        for k, v in want.items():
+            assert got[k].device == dev and torch.equal(got[k].cpu(), v), k
+
+
+def test_pframe_core_kernel_in_two_threads(cuda_device):
+    """Two threads, each on a stream of its own, run the P core on their
+    own pictures 20 times: every result equals its picture's plain
+    version."""
+    import threading
+
+    from chip_smoke import pcore_planes
+    from media_tpu_torch.pipeline import pframe_core as pc
+
+    R, C, rs = 17, 30, 8
+    inputs = [[p.to(cuda_device) for p in pcore_planes(R, C, rs, s)]
+              for s in (1, 2)]
+    want = [pc.local_pframe_core_plain(*planes, 28, 27, rs, R, C)
+            for planes in inputs]
+    errors = []
+
+    def work(i):
+        try:
+            with torch.cuda.stream(torch.cuda.Stream()):
+                for _ in range(20):
+                    got = pc.local_pframe_core(*inputs[i], 28, 27, rs, R, C)
+                    torch.cuda.current_stream().synchronize()
+                    if not all(torch.equal(got[k], v)
+                               for k, v in want[i].items()):
+                        errors.append(i)
+        except Exception as e:  # reported below
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=work, args=(i,)) for i in (0, 1)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert errors == []
