@@ -37,7 +37,16 @@ Phases, one line each; nothing is caught, any failure exits non-zero:
      QP as an int, a 0-d tensor and a per-MB map, and on two 17-row tiles
      whose halo rows are their neighbours' rows: every output equal; at
      1080p both timed on fresh inputs, the search alone too, the device
-     activities and busy time of one call of each;
+     activities and busy time of one call of each; and the intra wavefront
+     kernels (csrc/intra_wave.cu) against encoder.intra_encode_plain and
+     decoder_tpu.intra_recon_plain at (1,1), (1,5), (5,1), (6,9) and 1080p
+     on flat planes (ties everywhere), a structured picture with a slice
+     start (and below 1080p noise at QP 0 and QP 51), with and without the
+     I_4x4 decision, and at 4K without it: every symbol array and recon
+     sample equal, the recon kernel on the plain encode's symbols; at
+     1080p both timed on fresh inputs beside one run of each plain loop,
+     the device activities and busy time of one call of each, the bounds
+     and the time a wave;
   4. native: g++ builds the host library (media_tpu_torch/csrc/*.cpp, tables
      generated from the package); on the symbols of one 1080p I and one P
      frame of the clip, each C++ writer, parser and the transcoder against
@@ -81,7 +90,9 @@ Phases, one line each; nothing is caught, any failure exits non-zero:
      I_4x4 / I_16x16 decision in the IDR: phase 7's first run with
      i4x4=True, held to its golden in the same way; the IDR's time, size, QP
      and count of I_4x4 macroblocks (> 0, the golden's); then TpuDecoder()
-     on its IDR + 8 P, as in phase 8;
+     on its IDR + 8 P, as in phase 8; then the clip's IDR with and without
+     the decision through encode_iframe (host clock), the wavefront kernel
+     alone (events, device activities) and one run of the plain loop;
  10. four slices a picture: (a) CAVLC at constant QP with
      deblock_across_slices=False (idc 2: the whole-frame kernel with
      slice-local strengths), IDR + 4 P through the host C++ writers, the P
@@ -163,12 +174,15 @@ Phases, one line each; nothing is caught, any failure exits non-zero:
      compiler's message and the run goes on; any other failure fails it.
 Phases 9 to 16 hold every AU and decoded picture to the golden as well.
 Phase 3 also runs route wave in two threads, 20 pictures each.
-The packer's and the P core's kernel launches are counted phase by phase
-(the counts set to 0 just before a phase and read just after; the spawned
-GOP workers report theirs); the encode, rate, I_4x4, tile and GOP-dispatch
-phases must have launched the packer, and every phase that encodes P frames
-on the card (5, 7, 9, 10, 11, 13, 14, 16, 17, 18) the P core, the B-GOP's
-B pictures its search alone. A [time] line gives each phase's seconds. The
+The packer's, the P core's and the intra kernels' launches are counted
+phase by phase (the counts set to 0 just before a phase and read just
+after; the spawned GOP workers report theirs); the encode, rate, I_4x4,
+tile and GOP-dispatch phases must have launched the packer, every phase
+that encodes P frames on the card (5, 7, 9, 10, 11, 13, 14, 16, 17, 18) the
+P core, the B-GOP's B pictures its search alone, every phase that encodes
+an IDR on the card (5, 6, 7, 9, 10, 11, 13, 14, 16, 17, 18) the intra
+encoder kernel and every phase that decodes an I picture there (6, 8, 9,
+10, 13, 18) the intra recon kernel. A [time] line gives each phase's seconds. The
 second-to-last line is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -1399,20 +1413,97 @@ def pcore_runs(R, C, device):
     return runs
 
 
+# The intra wavefront kernels' shapes: one MB, one row, one column, a small
+# grid and 1080p with and without the I_4x4 decision; 4K (a plain I_4x4
+# IDR there would take about a minute) without it.
+INTRA_SHAPES = ((1, 1), (1, 5), (5, 1), (6, 9), (R_MB, C_MB))
+INTRA_4K = (135, 240)
+
+
+def intra_picture(R, C, seed, kind):
+    """int32 (y, u, v) planes of an (R, C) MB grid, made with numpy from
+    `seed`: "flat", one level a plane, where every mode ties; "structured",
+    directional edges around a flat rectangle (where I_4x4 and I_16x16 MBs
+    both win) and chroma in four levels; "noise", independent samples."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    h, w = 16 * R, 16 * C
+    if kind == "flat":
+        planes = (np.full((h, w), 77), np.full((h // 2, w // 2), 90),
+                  np.full((h // 2, w // 2), 150))
+    elif kind == "noise":
+        planes = [rng.integers(0, 256, s)
+                  for s in ((h, w), (h // 2, w // 2), (h // 2, w // 2))]
+    elif kind == "structured":
+        yy, xx = np.mgrid[0:h, 0:w]
+        y = (128 + 60 * np.sin(xx / 3.0) * (yy % 17 < 9)
+             + 50 * ((xx + 2 * yy) % 23 < 7) + rng.integers(0, 6, (h, w)))
+        y = y.round().clip(0, 255)
+        y[16:32, 16:48] = 100
+        u = (rng.integers(0, 256, (h // 2, w // 2)) // 64) * 40 + 40
+        v = 150 - 5 * (xx[::2, ::2] % 7)
+        planes = (y, u, v)
+    else:
+        raise ValueError(kind)
+    return [torch.as_tensor(np.ascontiguousarray(p), dtype=torch.int32)
+            for p in planes]
+
+
+def intra_runs(R, C):
+    """The pictures both intra kernels are held on at an (R, C) grid:
+    [(label, (y, u, v), qp, slice_starts)]: flat planes at QP 36 (the
+    shifting branch of dequant_dc_4x4) and the structured picture at QP 28
+    with a slice start at row R // 2; below 1080p also noise at QP 0 and the
+    structured picture at QP 51."""
+    mid = (R // 2,) if R >= 2 else ()
+    runs = [("flat QP36", intra_picture(R, C, R * C, "flat"), 36, ()),
+            (f"structured QP28 slice starts {mid}",
+             intra_picture(R, C, R * C + 1, "structured"), 28, mid)]
+    if R * C < R_MB * C_MB:
+        runs += [("noise QP0", intra_picture(R, C, R * C + 2, "noise"), 0, ()),
+                 ("structured QP51",
+                  intra_picture(R, C, R * C + 3, "structured"), 51, mid)]
+    return runs
+
+
+def intra_recon_args(R, C, sym, qp, starts):
+    """decoder_tpu.intra_recon's arguments for the symbols of an encode, the
+    I_4x4 fields where the encode had the decision."""
+    i4 = (tuple(sym[k] for k in ("is_i4", "modes4", "luma4_levels"))
+          if "is_i4" in sym else None)
+    return (R, C, sym["mode16"], sym["chroma_mode"],
+            (sym["dc_levels"], sym["ac_levels"]),
+            (sym["cdc_levels"], sym["cac_levels"]), qp, starts, i4)
+
+
 def _device_activities(fn, names: bool = False) -> tuple:
     """Device activities (kernels, memsets, copies) of one call of fn and
     the sum of their device times in ms, by torch.profiler; with `names`
-    also the sorted set of their names."""
+    also the sorted set of their names. The trace drops the first
+    activities after it starts (on the H100 it listed 178 of a call's 187
+    launches, and none of a call's one), so 64 small kernels run first and
+    only what starts after the host range around fn is counted; the
+    range's own copy on the device timeline is not an activity."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
+    warm = torch.zeros(1, device="cuda")
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        fn()
+        for _ in range(64):
+            warm.add_(1)
         torch.cuda.synchronize()
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        with record_function("chip_smoke.measured"):
+            fn()
+            torch.cuda.synchronize()
+    t0 = min(e.time_range.start for e in prof.events()
+             if e.name == "chip_smoke.measured")
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+              and e.time_range.start >= t0
+              and e.name != "chip_smoke.measured"]
     out = (len(events), sum(e.time_range.elapsed_us() for e in events) / 1e3)
     return out + (sorted({e.name for e in events}),) if names else out
 
@@ -1653,6 +1744,184 @@ def phase_kernel_pcore(smi: str) -> dict:
           f"({rec['bound_bytes']} bytes, {rec['bound_ops']} operations); "
           f"phase {time.perf_counter() - t0:.1f} s | {smi}")
     return rec
+
+
+def _intra_err(got, want) -> int:
+    """max |difference| over every output of two intra encodes or two
+    reconstructions (dicts or plane tuples); a dtype or a set of keys that
+    differs counts as a difference."""
+    if isinstance(want, dict):
+        if set(got) != set(want):
+            return 1 << 30
+        got, want = [got[k] for k in want], list(want.values())
+    err = 0
+    for a, b in zip(got, want):
+        if a.dtype != b.dtype:
+            return 1 << 30
+        err = max(err, int((a.long() - b.long()).abs().max()))
+    return err
+
+
+def _events_ms(fn) -> tuple:
+    """(ms by one CUDA event pair, result) of one call of fn."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end), out
+
+
+def _intra_bound(inputs, outputs, ops_per_mb: int, n_mbs: int) -> dict:
+    """The least time the card could take: the inputs read once and the
+    outputs written once over the memory rate, against `ops_per_mb` a MB
+    over the ALU rate (a floor: three operations, subtract, absolute value
+    and add, per sample of every candidate prediction the encoder costs;
+    three per reconstructed sample in the decoder)."""
+    n_bytes = _nbytes(*inputs, *outputs)
+    ops = n_mbs * ops_per_mb
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_S, ops / PEAK_OPS_S
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_bytes": n_bytes, "bound_ops": ops}
+
+
+def phase_kernel_intra(smi: str) -> tuple:
+    """Both intra wavefront kernels against their plain loops on every run
+    of intra_runs at every shape of INTRA_SHAPES, with and without the
+    I_4x4 decision, and at 4K without it: every symbol array, is_i4,
+    modes4 and recon sample of the encoder kernel, and every sample the
+    recon kernel decodes from the plain encode's symbols, equal. At 1080p
+    (the structured picture, QP 28) both kernels timed on fresh inputs
+    (median of 10) beside one run of each plain loop, one call of each
+    through torch.profiler for its device activities and busy time, and
+    the bounds. Returns the records of intra_encode and intra_recon."""
+    import torch
+
+    from media_tpu_torch.ops.transform import chroma_qp
+    from media_tpu_torch.pipeline.decoder_tpu import (
+        intra_recon, intra_recon_plain, row_has_top)
+    from media_tpu_torch.pipeline.encoder import intra_encode, intra_encode_plain
+    from media_tpu_torch.pipeline.intra_wave import (
+        launch_intra_encode, launch_intra_recon)
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    max_err = {"encode": 0, "recon": 0}
+    for R, C in INTRA_SHAPES + (INTRA_4K,):
+        labels = []
+        for label, planes, qp, starts in intra_runs(R, C):
+            planes = [p.to(dev) for p in planes]
+            qp_c = int(chroma_qp(qp))
+            has_top = row_has_top(R, starts, dev)
+            for i4x4 in (False,) if (R, C) == INTRA_4K else (False, True):
+                got = launch_intra_encode(*planes, qp, qp_c, has_top, i4x4)
+                want = intra_encode_plain(*planes, qp, qp_c, has_top, i4x4)
+                args = intra_recon_args(R, C, want, qp, starts)
+                got_r = launch_intra_recon(*args[:7], qp_c, has_top,
+                                           args[8])
+                want_r = intra_recon_plain(*args)
+                errs = (_intra_err(got, want), _intra_err(got_r, want_r))
+                if any(errs):
+                    raise AssertionError(
+                        f"intra kernels vs plain, {R}x{C} {label} i4x4 "
+                        f"{i4x4}: max |err| encode {errs[0]}, recon "
+                        f"{errs[1]}")
+                n_i4 = int(want["is_i4"].sum()) if i4x4 else 0
+                labels.append(f"{label}{' I_4x4 ' + str(n_i4) if i4x4 else ''}")
+        print(f"[kernel] intra_encode + intra_recon {R}x{C} equal=True "
+              f"(every symbol array and recon sample; the decode of the "
+              f"plain symbols) on {len(labels)} runs: {', '.join(labels)}")
+
+    # 1080p: the structured picture at the operating point's IDR QP.
+    R, C, qp = R_MB, C_MB, 28
+    qp_c = int(chroma_qp(qp))
+    planes = [p.to(dev) for p in intra_picture(R, C, 41, "structured")]
+    has_top = row_has_top(R, (), dev)
+
+    def fresh():
+        return [p.clone() for p in planes]
+
+    enc, rec = {"max_abs_err": 0}, {"max_abs_err": 0}
+    for i4x4 in (False, True):
+        sfx = "_i4x4" if i4x4 else ""
+        waves = 2 * (R - 1) + C if i4x4 else R + C - 1
+
+        def kernel(*p, _i4=i4x4):
+            return launch_intra_encode(*p, qp, qp_c, has_top, _i4)
+
+        enc["ms" + sfx] = _cuda_median_ms(kernel, fresh, 10)
+        enc["plain_ms" + sfx], want = _events_ms(
+            lambda: intra_encode_plain(*planes, qp, qp_c, has_top, i4x4))
+        got = kernel(*planes)
+        enc["max_abs_err"] = max(enc["max_abs_err"], _intra_err(got, want))
+        (enc["device_activities_per_call" + sfx],
+         enc["device_busy_ms" + sfx]) = _device_activities(
+            lambda: kernel(*planes))
+        enc["waves" + sfx] = waves
+        enc["ms_per_wave" + sfx] = enc["ms" + sfx] / waves
+        n_cand = 4 * 256 + 8 * 64 + (9 * 256 if i4x4 else 0)
+        b = _intra_bound(planes, list(got.values()), 3 * n_cand, R * C)
+        enc.update({k + sfx: v for k, v in b.items()})
+
+        args = intra_recon_args(R, C, want, qp, ())
+        sym = [args[2], args[3], *args[4], *args[5], *(args[8] or ())]
+
+        def fresh_sym(_sym=sym):
+            return [x.clone() for x in _sym]
+
+        def recon(m16, cm, dc, ac, cdc, cac, *i4):
+            return launch_intra_recon(R, C, m16, cm, (dc, ac), (cdc, cac), qp,
+                                      qp_c, has_top, tuple(i4) or None)
+
+        rec["ms" + sfx] = _cuda_median_ms(recon, fresh_sym, 10)
+        rec["plain_ms" + sfx], want_r = _events_ms(
+            lambda: intra_recon_plain(*args))
+        got_r = recon(*sym)
+        rec["max_abs_err"] = max(rec["max_abs_err"], _intra_err(got_r, want_r))
+        (rec["device_activities_per_call" + sfx],
+         rec["device_busy_ms" + sfx]) = _device_activities(
+            lambda: recon(*sym))
+        rec["waves" + sfx] = waves
+        rec["ms_per_wave" + sfx] = rec["ms" + sfx] / waves
+        b = _intra_bound(sym, got_r, 3 * 384, R * C)
+        rec.update({k + sfx: v for k, v in b.items()})
+        kind = (f"I_4x4 decision: {int(want['is_i4'].sum())} I_4x4 MBs"
+                if i4x4 else "I_16x16")
+        for what, r in (("intra_encode", enc), ("intra_recon", rec)):
+            print(f"[kernel] {what} 1080p (R={R}, C={C}, QP {qp}, the "
+                  f"structured picture, {kind}) "
+                  f"kernel {r['ms' + sfx]:.4f} ms (median of 10, each on "
+                  f"fresh inputs, the wrapper's host work inside the event "
+                  f"pair), {r['ms_per_wave' + sfx]:.5f} ms a wave over "
+                  f"{waves} waves; {r['device_activities_per_call' + sfx]} "
+                  f"device activities a call busy "
+                  f"{r['device_busy_ms' + sfx]:.4f} ms by the profiler; plain "
+                  f"{r['plain_ms' + sfx]:.1f} ms (one run); bound "
+                  f"{r['bound_ms' + sfx]:.6f} ms by {r['bound_by' + sfx]} "
+                  f"({r['bound_bytes' + sfx]} bytes, {r['bound_ops' + sfx]} "
+                  f"operations) | {smi}")
+    err = max(enc["max_abs_err"], rec["max_abs_err"])
+    if err:
+        raise AssertionError(f"intra kernels vs plain at 1080p: max |err| "
+                             f"{err}")
+    # The timed figures of the contract's line are the I_16x16 IDR's.
+    for r in (enc, rec):
+        r["library_ms"] = None  # no PyTorch call computes an intra decision
+    counts = (lambda: (intra_encode.launches, intra_encode.kernel_launches,
+                       intra_recon.launches, intra_recon.kernel_launches))
+    before = counts()
+    out = intra_encode(*planes, qp, qp_c, has_top, False)
+    intra_recon(*intra_recon_args(R, C, out, qp, ())[:8])
+    got = [n - m for n, m in zip(counts(), before)]
+    if got != [1, R + C - 1] * 2:
+        raise AssertionError(f"the intra wrappers counted {got} (calls, "
+                             f"kernel launches) for one call each")
+    print(f"[kernel] intra phase {time.perf_counter() - t0:.1f} s | {smi}")
+    return enc, rec
 
 
 def _beside_plain(what: str, kernel, plain, err, *args, **kw) -> tuple:
@@ -2364,53 +2633,56 @@ def phase_cabac_decode(smi: str, want, aus, recon_idr, recon_run,
 
 
 def _i4_idr_split(smi: str, bufs) -> None:
-    """Where the host's time goes in one I_4x4 IDR (QP 28, the operating
-    point's): the stages enqueue small kernels without waiting for them and
-    the device is idle between them, so the host clock inside a stage is
-    the cost of its launches. Beside it the same frame as I_16x16."""
+    """One 1080p IDR of the clip at QP 28 (the operating point's), with and
+    without the I_4x4 decision: the whole encode_iframe (the wavefront
+    kernels, the download of the symbols, deblocking) by the host clock;
+    the wavefront kernel alone by CUDA events (median of 5, fresh inputs)
+    and its device activities and busy time by the profiler; beside them
+    one run of the plain loop on the same frame, and every output of the
+    two equal."""
     import torch
 
-    from media_tpu_torch.ops import intra as intra_ops
-    from media_tpu_torch.pipeline import encoder as enc_mod
-    from media_tpu_torch.pipeline.encoder import FrameEncoder
+    from media_tpu_torch.ops.transform import chroma_qp
+    from media_tpu_torch.pipeline.encoder import (
+        FrameEncoder, intra_encode_plain)
+    from media_tpu_torch.pipeline.intra_wave import launch_intra_encode
     from media_tpu_torch.utils import yuv
 
     enc = FrameEncoder(C_MB * 16, R_MB * 16)
-    planes = [yuv.pad_to_mb_grid(p, size) for p, size in zip(
-        yuv.split_i420(bufs[0], WIDTH, HEIGHT), (16, 8, 8))]
-    spent = {"chain": 0.0, "pred": 0.0, "satd": 0.0}
-    patched = ((enc_mod, "i4_chain", "chain", lambda *a: True),
-               (intra_ops, "pred_4x4_all", "pred", lambda *a: True),
-               (intra_ops, "satd_cost", "satd", lambda p, _o: p.shape[1] == 9))
-    inner = {}
-    for mod, attr, key, when in patched:
-        def timed(*a, _fn=getattr(mod, attr), _key=key, _when=when):
-            if not _when(*a):
-                return _fn(*a)
-            t0 = time.perf_counter()
-            out = _fn(*a)
-            spent[_key] += time.perf_counter() - t0
-            return out
-        inner[(mod, attr)] = getattr(mod, attr)
-        setattr(mod, attr, timed)
-    total = {}
+    planes = [torch.as_tensor(yuv.pad_to_mb_grid(p, size), dtype=torch.int32,
+                              device=enc.device)
+              for p, size in zip(yuv.split_i420(bufs[0], WIDTH, HEIGHT),
+                                 (16, 8, 8))]
+    qp = 28
+    qp_c = int(chroma_qp(qp))
+    has_top = enc._row_has_top
     for i4x4 in (True, False):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        enc.encode_iframe(*planes, 28, deblock=True, i4x4=i4x4)
+        res = enc.encode_iframe(*planes, qp, deblock=True, i4x4=i4x4)
         torch.cuda.synchronize()
-        total[i4x4] = (time.perf_counter() - t0) * 1e3
-    for (mod, attr), fn in inner.items():
-        setattr(mod, attr, fn)
-    chain, pred, satd = (spent[k] * 1e3 for k in ("chain", "pred", "satd"))
-    print(f"[i4x4] encode_iframe {WIDTH}x{HEIGHT} QP28 with the I_4x4 "
-          f"decision {total[True]:.1f} ms over {2 * (R_MB - 1) + C_MB} waves, "
-          f"host clock: the 16-step chain {chain:.1f} (pred_4x4_all "
-          f"{pred:.1f}, nine-mode SATD {satd:.1f}, argmin + transform + "
-          f"quant + recon + canvas {chain - pred - satd:.1f}), the I_16x16 "
-          f"candidate, chroma, select, scatters and deblock "
-          f"{total[True] - chain:.1f}; the same frame without the decision "
-          f"{total[False]:.1f} ms over {R_MB + C_MB - 1} waves | {smi}")
+        whole = (time.perf_counter() - t0) * 1e3
+
+        def kernel(*p, _i4=i4x4):
+            return launch_intra_encode(*p, qp, qp_c, has_top, _i4)
+
+        ms = _cuda_median_ms(kernel, lambda: [p.clone() for p in planes], 5)
+        n_act, busy = _device_activities(lambda: kernel(*planes))
+        plain_ms, want = _events_ms(
+            lambda: intra_encode_plain(*planes, qp, qp_c, has_top, i4x4))
+        err = _intra_err(kernel(*planes), want)
+        if err:
+            raise AssertionError(f"[i4x4] wavefront kernel vs plain on the "
+                                 f"clip's IDR, i4x4 {i4x4}: max |err| {err}")
+        waves = 2 * (R_MB - 1) + C_MB if i4x4 else R_MB + C_MB - 1
+        what = (f"with the I_4x4 decision ({int(res.is_i4.sum())} of "
+                f"{R_MB * C_MB} MBs I_4x4)" if i4x4 else "I_16x16")
+        print(f"[i4x4] IDR {WIDTH}x{HEIGHT} QP{qp} {what}: encode_iframe "
+              f"{whole:.1f} ms by the host clock (deblock and symbol download "
+              f"included); the wavefront kernel {ms:.4f} ms by events over "
+              f"{waves} waves, {n_act} device activities busy {busy:.4f} ms; "
+              f"the plain loop {plain_ms:.1f} ms on the same frame, every "
+              f"output equal | {smi}")
 
 
 def _np_planes(planes):
@@ -3338,7 +3610,8 @@ def phase_gop_dispatch(smi: str) -> tuple:
     reset_gop_state per GOP, the thread dispatcher, and the process
     dispatcher with 1, 2 and 4 workers on the one card, every AU list equal
     to the sequential one. Returns the whole-frame kernel's launches and the
-    packer and P-core kernels' launches in the worker processes."""
+    packer, P-core and intra encode kernels' launches in the worker
+    processes."""
     import torch
 
     from media_tpu_torch.ops.deblock_wave import deblock_wave
@@ -3390,7 +3663,7 @@ def phase_gop_dispatch(smi: str) -> tuple:
           f"(busiest worker {rep.busiest_worker_s:.2f} s of {rep.wall_s:.2f} "
           f"s) | {smi}")
 
-    worker_packs = worker_cores = 0
+    worker_packs = worker_cores = worker_iencs = worker_ikernels = 0
     for k in DISPATCH_PROCS:
         aus, rep = dispatch_multiprocess(
             cfg_kwargs, frames, GOP_DISPATCH, n_procs=k,
@@ -3398,16 +3671,19 @@ def phase_gop_dispatch(smi: str) -> tuple:
         if (aus != seq or rep.kernel_launches != n
                 or rep.pack_launches != n - GOPS_DISPATCH
                 or rep.core_launches != n - GOPS_DISPATCH
+                or rep.intra_launches != GOPS_DISPATCH
                 or rep.distributed != (k == 4)):
             raise AssertionError(
                 f"gop {k} processes: AUs equal {aus == seq}, "
                 f"{rep.kernel_launches} deblock, {rep.pack_launches} "
-                f"packer and {rep.core_launches} P-core launches for {n} "
-                f"frames, process group "
-                f"{rep.distributed}")
+                f"packer, {rep.core_launches} P-core and "
+                f"{rep.intra_launches} intra launches for {n} frames, "
+                f"process group {rep.distributed}")
         launches += rep.kernel_launches
         worker_packs += rep.pack_launches
         worker_cores += rep.core_launches
+        worker_iencs += rep.intra_launches
+        worker_ikernels += rep.intra_kernel_launches
         per = {}
         for g in rep.gops:
             per[g.worker] = per.get(g.worker, 0.0) + g.compute_s
@@ -3420,7 +3696,8 @@ def phase_gop_dispatch(smi: str) -> tuple:
               f"dispatch_overhead {overhead:.4f}, prewarm_s "
               f"{rep.prewarm_s:.3f}, wall with start-up {rep.wall_s:.2f} s "
               f"({mps}) | {smi}")
-    return launches, worker_packs, worker_cores
+    return (launches, worker_packs, worker_cores, worker_iencs,
+            worker_ikernels)
 
 
 def main() -> None:
@@ -3445,27 +3722,38 @@ def main() -> None:
     krec_step = timed("kernel_step", phase_kernel_step, smi)
     krec_pack = timed("kernel_pack", phase_kernel_pack, smi)
     krec_pcore = timed("kernel_pcore", phase_kernel_pcore, smi)
+    krec_ienc, krec_irec = timed("kernel_intra", phase_kernel_intra, smi)
     if "--kernels" in sys.argv[1:]:
         return
     from media_tpu_torch.entropy.device_cavlc import pack_pslice_device
+    from media_tpu_torch.pipeline.decoder_tpu import intra_recon
+    from media_tpu_torch.pipeline.encoder import intra_encode
     from media_tpu_torch.pipeline.pframe_core import (
         local_pframe_core, search_refine_luma)
 
     # phase -> the launches in its run of the packer kernel, of the P-core
-    # kernel as the P core, and of the P-core kernel as the search alone.
-    packs, cores, searches = {}, {}, {}
+    # kernel as the P core, of the P-core kernel as the search alone, and the
+    # calls of the intra wavefront kernels (one a picture or tile) with the
+    # kernels those calls enqueued (one a wave).
+    packs, cores, searches, iencs, irecs = {}, {}, {}, {}, {}
+    ienc_kernels, irec_kernels = {}, {}
+    wrappers = ((packs, pack_pslice_device, "launches"),
+                (cores, local_pframe_core, "launches"),
+                (searches, search_refine_luma, "launches"),
+                (iencs, intra_encode, "launches"),
+                (ienc_kernels, intra_encode, "kernel_launches"),
+                (irecs, intra_recon, "launches"),
+                (irec_kernels, intra_recon, "kernel_launches"))
 
     def counted(name, phase, *args):
         """Run a phase with the launch counts set to 0 just before and read
         just after (its stage splits time the kernels through the uncounted
-        launch_pack_pslice and launch_pframe_core)."""
-        pack_pslice_device.launches = local_pframe_core.launches = 0
-        search_refine_luma.launches = 0
+        launch_pack_pslice, launch_pframe_core and launch_intra_encode)."""
+        for _, wrapper, attr in wrappers:
+            setattr(wrapper, attr, 0)
         out = timed(name, phase, *args)
-        for count, wrapper in ((packs, pack_pslice_device),
-                               (cores, local_pframe_core),
-                               (searches, search_refine_luma)):
-            count[name] = count.get(name, 0) + wrapper.launches
+        for count, wrapper, attr in wrappers:
+            count[name] = count.get(name, 0) + getattr(wrapper, attr)
         return out
 
     bufs, clip_sha = clip_i420()
@@ -3518,10 +3806,13 @@ def main() -> None:
     oracle_launches = counted("oracle_phase", phase_oracle, smi, golden)
     counted("hevc", phase_hevc, smi, golden)
     sharded_launches = counted("sharded", phase_sharded, smi, golden, bufs)
-    gop_launches, worker_packs, worker_cores = counted(
+    (gop_launches, worker_packs, worker_cores, worker_iencs,
+     worker_ikernels) = counted(
         "gop_dispatch", phase_gop_dispatch, smi)
     packs["gop_dispatch"] += worker_packs  # the spawned workers' launches
     cores["gop_dispatch"] += worker_cores
+    iencs["gop_dispatch"] += worker_iencs
+    ienc_kernels["gop_dispatch"] += worker_ikernels
     # The paths that code P slices on the device: each must have run
     # through the packer kernel.
     idle = [k for k in ("encode_path", "rate_path", "i4x4_operating_point",
@@ -3536,6 +3827,17 @@ def main() -> None:
     if idle or not searches["bgop"]:
         raise AssertionError(f"P-core kernel never launched in {idle}, "
                              f"{searches['bgop']} searches in the B-GOP")
+    # The phases that encode an IDR on the card, and those that decode an
+    # I picture there: each through the intra wavefront kernels.
+    idle = [k for k in ("encode_path", "decode_path", "rate_path",
+                        "i4x4_operating_point", "multislice", "bgop", "api",
+                        "capi", "oracle_phase", "sharded", "gop_dispatch")
+            if not iencs[k]]
+    idle += [k for k in ("decode_path", "cabac_decode_path",
+                         "i4x4_operating_point", "multislice", "api", "capi")
+             if not irecs[k]]
+    if idle:
+        raise AssertionError(f"intra kernels never launched in {idle}")
     print("[time] seconds by phase: " + ", ".join(
         f"{k} {v:.1f}" for k, v in seconds.items()))
     print("[kernel] pframe_core launches by phase: " + ", ".join(
@@ -3543,6 +3845,10 @@ def main() -> None:
         + ", ".join(f"{k} {v}" for k, v in searches.items()))
     print("[kernel] device_cavlc_pack launches by phase: " + ", ".join(
         f"{k} {v}" for k, v in packs.items()))
+    for what, calls, kernels in (("intra_encode", iencs, ienc_kernels),
+                                 ("intra_recon", irecs, irec_kernels)):
+        print(f"[kernel] {what} calls (kernel launches) by phase: "
+              + ", ".join(f"{k} {v} ({kernels[k]})" for k, v in calls.items()))
     print(json.dumps({"kernels": [
         {"name": "deblock_wave", "route": "cuda",
          "source": "media_tpu_torch/csrc/deblock_wave.cu",
@@ -3584,7 +3890,22 @@ def main() -> None:
          "launches": sum(cores.values()) + sum(searches.values()),
          **{f"launches_{k}": v for k, v in cores.items()},
          **{f"search_launches_{k}": v for k, v in searches.items()},
-         **krec_pcore, **core_rec}]}))
+         **krec_pcore, **core_rec},
+        *({"name": name, "route": "cuda",
+           "source": "media_tpu_torch/csrc/intra_wave.cu",
+           "replaces": replaces,
+           # The wrapper counts a call: one picture or tile, which enqueues
+           # one kernel a wave (kernel_launches).
+           "launches": sum(calls.values()), "launches_unit": "calls",
+           "kernel_launches": sum(kernels.values()),
+           **{f"launches_{k}": v for k, v in calls.items()},
+           **{f"kernel_launches_{k}": v for k, v in kernels.items()}, **rec}
+          for name, replaces, calls, kernels, rec in (
+              ("intra_encode", "media_tpu/pipeline/encoder.py:451 (XLA)",
+               iencs, ienc_kernels, krec_ienc),
+              ("intra_recon",
+               "media_tpu/pipeline/decoder_tpu.py:323, :430 (XLA)", irecs,
+               irec_kernels, krec_irec)))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -94,7 +94,21 @@ def load() -> ctypes.CDLL:
     lib.deblock_wave_step_inplace_launch.restype = ci
     lib.media_cuda_error_string.argtypes = [ci]
     lib.media_cuda_error_string.restype = ctypes.c_char_p
-    return bind_pframe_core(bind_device_cavlc(lib))
+    return bind_intra_wave(bind_pframe_core(bind_device_cavlc(lib)))
+
+
+def bind_intra_wave(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """The C signatures of the intra wavefront's entry points
+    (csrc/intra_wave.cu; its host build for the tests,
+    csrc/intra_wave_emu.cpp, has the same)."""
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.intra_encode_launch.argtypes = (
+        [vp] * 5 + [ci, ci] + [vp] * 4 + [vp] * 12 + [ci, ci, ci, vp])
+    lib.intra_encode_launch.restype = ci
+    lib.intra_recon_launch.argtypes = (
+        [vp] * 10 + [ci, ci] + [vp] * 4 + [vp] * 3 + [ci, ci, vp])
+    lib.intra_recon_launch.restype = ci
+    return lib
 
 
 def bind_pframe_core(lib: ctypes.CDLL) -> ctypes.CDLL:

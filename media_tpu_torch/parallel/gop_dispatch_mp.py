@@ -61,6 +61,11 @@ class MpDispatchReport:
     # P-core kernel launches of the same GOPs
     # (pipeline/pframe_core.py:local_pframe_core.launches; 0 on the CPU).
     core_launches: int = 0
+    # Intra wavefront calls (one an IDR) of the same GOPs, and the kernels
+    # they enqueued, one a wave (pipeline/encoder.py:intra_encode.launches
+    # and .kernel_launches; 0 on the CPU).
+    intra_launches: int = 0
+    intra_kernel_launches: int = 0
 
     @property
     def compute_s_total(self) -> float:
@@ -132,6 +137,7 @@ def _worker_main(widx: int, n_procs: int, coord: str | None,
     from ..entropy.device_cavlc import pack_pslice_device
     from ..ops.deblock_wave import deblock_wave
     from ..pipeline.codec import EncoderConfig, EncoderSession
+    from ..pipeline.encoder import intra_encode
     from ..pipeline.pframe_core import local_pframe_core
     from ..utils import yuv
 
@@ -151,7 +157,8 @@ def _worker_main(widx: int, n_procs: int, coord: str | None,
     session.reset_gop_state(0)
     # Measured GOPs only.
     deblock_wave.launches = pack_pslice_device.launches = 0
-    local_pframe_core.launches = 0
+    local_pframe_core.launches = intra_encode.launches = 0
+    intra_encode.kernel_launches = 0
     result_queue.put(("ready", widx, distributed))
     while True:
         item = gop_queue.get()
@@ -166,7 +173,8 @@ def _worker_main(widx: int, n_procs: int, coord: str | None,
     if distributed:
         dist.destroy_process_group()
     result_queue.put(("done", widx, deblock_wave.launches,
-                      pack_pslice_device.launches, local_pframe_core.launches))
+                      pack_pslice_device.launches, local_pframe_core.launches,
+                      intra_encode.launches, intra_encode.kernel_launches))
 
 
 def dispatch_multiprocess(cfg_kwargs: dict, frames: list, gop_size: int,
@@ -226,7 +234,7 @@ def dispatch_multiprocess(cfg_kwargs: dict, frames: list, gop_size: int,
     results: dict[int, list] = {}
     stats: list[MpGopStats] = []
     distributed = False
-    launches = packs = cores = 0
+    launches = packs = cores = intras = intra_kernels = 0
     ready = done = 0
     try:
         # Wait for EVERY worker's ready (post-warmup) before enqueueing any
@@ -255,6 +263,8 @@ def dispatch_multiprocess(cfg_kwargs: dict, frames: list, gop_size: int,
                 launches += msg[2]
                 packs += msg[3]
                 cores += msg[4]
+                intras += msg[5]
+                intra_kernels += msg[6]
             elif msg[0] == "log":
                 pass
         for p in procs:
@@ -277,5 +287,6 @@ def dispatch_multiprocess(cfg_kwargs: dict, frames: list, gop_size: int,
                               distributed=distributed,
                               gops=sorted(stats, key=lambda s: s.gop_index),
                               kernel_launches=launches, pack_launches=packs,
-                              core_launches=cores)
+                              core_launches=cores, intra_launches=intras,
+                              intra_kernel_launches=intra_kernels)
     return out, report

@@ -28,6 +28,7 @@ that falls back on UnsupportedStream never hides a device fault.
 
 from __future__ import annotations
 
+import threading
 import time
 from dataclasses import dataclass, field
 
@@ -48,6 +49,7 @@ from ..ops.pad import edge_pad
 from . import mv_pred
 from .deblock_apply import deblock_iframe, deblock_pframe_from_symbols
 from .encoder import ZSCAN_TO_RASTER, i4_chain, wave_lanes
+from .intra_wave import kernel_launches, launch_intra_recon
 from .pframe_core import (
     _TAPS, INTERP_HALO, SYMBOLS_PER_MB, _blocks8_mb, _blocks_mb, _mb_origins,
     _windows, from_mbs, mc_chroma_ext)
@@ -291,29 +293,54 @@ def _recon_iframe_device(R: int, C: int, mode16, chroma_mode, luma_sym,
                          slice_starts: tuple = (),
                          deblock_starts: tuple = (), kernel: str = "frame",
                          i4_sym=None):
-    """Wavefront intra reconstruction with given modes and levels (the
-    decode twin of FrameEncoder._encode_iframe_device's loop over the waves,
-    valid lanes only; the JAX package's _recon_iframe_device and
-    _recon_iframe_mixed_device in one).
+    """Wavefront intra reconstruction with given modes and levels
+    (intra_recon; the JAX package's _recon_iframe_device and
+    _recon_iframe_mixed_device in one), then the in-loop filter.
 
     slice_starts: rows starting a new slice (intra prediction never crosses
     them). deblock_starts: rows the filter must not cross
     (disable_deblocking_filter_idc == 2; empty when idc == 0). i4_sym: None
-    for an I_16x16 picture (R+C-1 waves), else (is_i4 (R, C) bool, modes4
-    (R, C, 16) z-scan, luma4 (R, C, 16, 16) zig-zag per raster block) of a
-    mixed I_16x16 / I_4x4 picture: the skew-2 schedule, and per MB the
-    I_16x16 reconstruction or the 16-step I_4x4 chain with the coded
-    modes."""
+    for an I_16x16 picture, else (is_i4, modes4, luma4) of a mixed
+    I_16x16 / I_4x4 picture (see intra_recon_plain). Returns uint8
+    planes."""
+    planes = intra_recon(R, C, mode16, chroma_mode, luma_sym, chroma_sym, qp,
+                         slice_starts, i4_sym)
+    if deblock:
+        return deblock_iframe(*planes, qp, int(T.chroma_qp(qp)), R, C,
+                              deblock_starts, kernel=kernel)
+    return planes
+
+
+def row_has_top(R: int, slice_starts: tuple, device):
+    """(R,) bool: whether MB row r may predict from the row above; false at
+    row 0 and at every slice start (intra never crosses a slice boundary).
+    Built on the device, with no copy from the host."""
+    rows = torch.arange(R, device=device)
+    has_top = rows > 0
+    for sr in slice_starts:
+        has_top &= rows != sr
+    return has_top
+
+
+def intra_recon_plain(R: int, C: int, mode16, chroma_mode, luma_sym,
+                      chroma_sym, qp: int, slice_starts: tuple = (),
+                      i4_sym=None):
+    """The wavefront reconstruction in plain PyTorch (the decode twin of
+    encoder.intra_encode_plain's loop over the waves, valid lanes only).
+    mode16, chroma_mode (R, C); luma_sym (dc (R, C, 16) zig-zag, ac (R, C,
+    16, 15)); chroma_sym (cdc (R, C, 2, 4), cac (R, C, 2, 4, 15)), int32.
+    i4_sym: None for an I_16x16 picture (R+C-1 waves), else (is_i4 (R, C)
+    bool, modes4 (R, C, 16) z-scan, luma4 (R, C, 16, 16) zig-zag per raster
+    block) of a mixed I_16x16 / I_4x4 picture: the skew-2 schedule, and per
+    MB the I_16x16 reconstruction or the 16-step I_4x4 chain with the coded
+    modes. Returns uint8 planes, before deblocking."""
     dc_levels, ac_levels = luma_sym
     cdc_levels, cac_levels = chroma_sym
     skew = 1 if i4_sym is None else 2
     dev = mode16.device
     i32 = torch.int32
     qp_c = int(T.chroma_qp(qp))
-    has_top = torch.ones(R, dtype=torch.bool, device=dev)
-    has_top[0] = False
-    for sr in slice_starts:
-        has_top[sr] = False  # intra never crosses a slice boundary
+    has_top = row_has_top(R, slice_starts, dev)
     recon_y = torch.zeros((R, C, 16, 16), dtype=i32, device=dev)
     recon_u = torch.zeros((R, C, 8, 8), dtype=i32, device=dev)
     recon_v = torch.zeros((R, C, 8, 8), dtype=i32, device=dev)
@@ -367,13 +394,33 @@ def _recon_iframe_device(R: int, C: int, mode16, chroma_mode, luma_sym,
                 preds_c[lanes, cmode], cdc_levels[r, c, comp],
                 cac_levels[r, c, comp], qp_c)
 
-    ry = recon_y.transpose(1, 2).reshape(R * 16, C * 16)
-    ru = recon_u.transpose(1, 2).reshape(R * 8, C * 8)
-    rv = recon_v.transpose(1, 2).reshape(R * 8, C * 8)
-    if deblock:
-        return deblock_iframe(ry, ru, rv, qp, qp_c, R, C, deblock_starts,
-                              kernel=kernel)
-    return tuple(x.to(torch.uint8) for x in (ry, ru, rv))
+    return tuple(x.transpose(1, 2).reshape(R * s, C * s).to(torch.uint8)
+                 for x, s in ((recon_y, 16), (recon_u, 8), (recon_v, 8)))
+
+
+def intra_recon(R: int, C: int, mode16, chroma_mode, luma_sym, chroma_sym,
+                qp: int, slice_starts: tuple = (), i4_sym=None):
+    """The I picture's reconstruction, as intra_recon_plain defines it. On
+    CPU tensors it runs the plain version; on CUDA tensors it launches the
+    kernels (csrc/intra_wave.cu, one a wave) on the current stream, counts
+    the call in `intra_recon.launches` and the kernels it enqueued in
+    `intra_recon.kernel_launches`."""
+    if mode16.device.type == "cpu":
+        return intra_recon_plain(R, C, mode16, chroma_mode, luma_sym,
+                                 chroma_sym, qp, slice_starts, i4_sym)
+    out = launch_intra_recon(R, C, mode16, chroma_mode, luma_sym, chroma_sym,
+                             qp, int(T.chroma_qp(qp)),
+                             row_has_top(R, slice_starts, mode16.device),
+                             i4_sym)
+    n = kernel_launches(R, C, i4_sym is not None)
+    with _COUNT_LOCK:  # decoders in several threads call it
+        intra_recon.launches += 1
+        intra_recon.kernel_launches += n
+    return out
+
+
+intra_recon.launches = intra_recon.kernel_launches = 0
+_COUNT_LOCK = threading.Lock()
 
 
 # ------------------------------------------------------------------ session

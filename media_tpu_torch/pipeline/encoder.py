@@ -13,6 +13,7 @@ deblocking and run as whole-frame tensor ops.
 
 from __future__ import annotations
 
+import threading
 from dataclasses import dataclass
 
 import numpy as np
@@ -23,6 +24,7 @@ from ..ops import intra as intra_ops
 from ..ops import transform as T
 from ..ops.pad import edge_pad
 from .deblock_apply import deblock_iframe, deblock_pframe_from_symbols
+from .intra_wave import kernel_launches, launch_intra_encode
 from .pframe_core import (
     INTERP_HALO, _blocks8_mb, _blocks_mb, _mb_blocks, _mb_blocks8,
     chroma_qp_device, local_bframe_core, local_pframe_core, unpack_b_symbols,
@@ -106,6 +108,182 @@ def i4_chain(top, left, top_left, tr_row4, avail_top, avail_left, tr_mb_ok,
         cur[:, y0 : y0 + 4, x0 : x0 + 4] = block_step(z, b, y0, x0, preds4,
                                                       ok4)
     return cur
+
+
+def intra_encode_plain(y, u, v, qp: int, qp_c: int, row_has_top,
+                       i4x4: bool = False):
+    """The IDR's intra wavefront in plain PyTorch, a Python loop over the
+    waves: y (16R, 16C), u, v (8R, 8C) int32 planes; row_has_top (R,) bool,
+    false at row 0 and every slice start. Returns {mode16, chroma_mode,
+    dc_levels, ac_levels, cdc_levels, cac_levels (int32), with i4x4 also
+    is_i4 (bool), modes4, luma4_levels; recon_y, recon_u, recon_v uint8
+    planes, before deblocking}."""
+    R, C = y.shape[0] // 16, y.shape[1] // 16
+    dev = y.device
+    i32 = torch.int32
+    orig_y = y.reshape(R, 16, C, 16).transpose(1, 2)  # (R, C, 16, 16)
+    orig_u = u.reshape(R, 8, C, 8).transpose(1, 2)
+    orig_v = v.reshape(R, 8, C, 8).transpose(1, 2)
+    st = {
+        "recon_y": torch.zeros((R, C, 16, 16), dtype=i32, device=dev),
+        "recon_u": torch.zeros((R, C, 8, 8), dtype=i32, device=dev),
+        "recon_v": torch.zeros((R, C, 8, 8), dtype=i32, device=dev),
+        "mode16": torch.zeros((R, C), dtype=i32, device=dev),
+        "chroma_mode": torch.zeros((R, C), dtype=i32, device=dev),
+        "dc_levels": torch.zeros((R, C, 16), dtype=i32, device=dev),
+        "ac_levels": torch.zeros((R, C, 16, 15), dtype=i32, device=dev),
+        "cdc_levels": torch.zeros((R, C, 2, 4), dtype=i32, device=dev),
+        "cac_levels": torch.zeros((R, C, 2, 4, 15), dtype=i32, device=dev),
+    }
+    if i4x4:
+        st["is_i4"] = torch.zeros((R, C), dtype=torch.bool, device=dev)
+        st["modes4"] = torch.zeros((R, C, 16), dtype=i32, device=dev)
+        st["luma4_levels"] = torch.zeros((R, C, 16, 16), dtype=i32,
+                                         device=dev)
+        # Mode-bit overhead of I_4x4 (about 16 x 2.5 bits), scaled by the
+        # quantizer step so that the trade follows the QP.
+        bias = 40 << (qp // 6)
+    skew = 2 if i4x4 else 1
+    unavailable = torch.tensor(1 << 30, dtype=i32, device=dev)
+
+    def chroma_code(o_c, pred_c):
+        w_c = T.forward_4x4(_mb_blocks8(o_c - pred_c))  # (N, 4, 4, 4)
+        dc2 = w_c[:, :, 0, 0].reshape(-1, 2, 2)
+        z2 = T.quant_dc_2x2(T.hadamard_2x2(dc2), qp_c, intra=True)
+        d2 = T.dequant_dc_2x2(T.hadamard_2x2(z2), qp_c)
+        z_cac = T.quant_4x4(w_c, qp_c, intra=True)
+        z_cac[:, :, 0, 0] = 0
+        d_c = T.dequant_4x4(z_cac, qp_c)
+        d_c[:, :, 0, 0] = d2.reshape(-1, 4)
+        recon_c = (pred_c + _blocks8_mb(T.inverse_4x4(d_c))).clamp(0, 255)
+        return z2.reshape(-1, 4), z_cac, recon_c
+
+    for k in range(skew * (R - 1) + C):
+        r, c = wave_lanes(k, R, C, skew, dev)
+        lanes = torch.arange(len(r), device=dev)
+        avail_top = row_has_top[r]
+        avail_left = c > 0
+        rm1 = (r - 1).clamp(min=0)
+        cm1 = (c - 1).clamp(min=0)
+
+        # ---- luma: I_16x16 mode decision by SATD, first minimum ----
+        ry = st["recon_y"]
+        o = orig_y[r, c]  # (N, 16, 16)
+        top, left = ry[rm1, c, 15, :], ry[r, cm1, :, 15]
+        top_left = ry[rm1, cm1, 15, 15]
+        preds = intra_ops.pred_16x16_all(top, left, top_left, avail_top,
+                                         avail_left)
+        cost = torch.where(
+            intra_ops.mode_available_16x16(avail_top, avail_left),
+            intra_ops.satd_cost(preds, o), unavailable)
+        mode = torch.argmin(cost, dim=-1)
+        pred = preds[lanes, mode]
+
+        w = T.forward_4x4(_mb_blocks(o - pred))  # (N, 16, 4, 4)
+        z_dc = T.quant_dc_4x4(T.hadamard_4x4(w[:, :, 0, 0].reshape(-1, 4, 4)),
+                              qp)
+        d_dc = T.dequant_dc_4x4(T.hadamard_4x4(z_dc), qp)
+        z_ac = T.quant_4x4(w, qp, intra=True)
+        z_ac[:, :, 0, 0] = 0
+        d = T.dequant_4x4(z_ac, qp)
+        d[:, :, 0, 0] = d_dc.reshape(-1, 16)
+        recon = (pred + _blocks_mb(T.inverse_4x4(d))).clamp(0, 255)
+
+        if i4x4:
+            # ---- the I_4x4 candidate: per block the SATD-best of the
+            # nine modes (first minimum), coded and reconstructed ----
+            modes4 = [None] * 16  # z-scan order
+            lev4 = [None] * 16  # raster block order
+            costs4 = []
+
+            def block_step(z, b, y0, x0, preds4, ok4):
+                ob = o[:, y0 : y0 + 4, x0 : x0 + 4]
+                c4 = torch.where(ok4, intra_ops.satd_cost(preds4, ob),
+                                 unavailable)
+                m4 = torch.argmin(c4, dim=-1)
+                p4 = preds4[lanes, m4]
+                zl = T.quant_4x4(T.forward_4x4(ob - p4), qp, intra=True)
+                modes4[z] = m4.to(i32)
+                lev4[b] = zl
+                costs4.append(torch.gather(c4, 1, m4[:, None])[:, 0])
+                return (p4 + T.inverse_4x4(T.dequant_4x4(zl, qp))).clamp(
+                    0, 255)
+
+            # The top-right MB's column is clamped: the last column has
+            # no MB to its right, and tr_mb_ok says so.
+            cur = i4_chain(
+                top, left, top_left,
+                ry[rm1, (c + 1).clamp(max=C - 1), 15, 0:4], avail_top,
+                avail_left, avail_top & (c < C - 1), block_step)
+            cost4 = torch.stack(costs4).sum(dim=0, dtype=i32)
+            i4_sel = cost4 + bias < cost.min(dim=-1).values
+            recon = torch.where(i4_sel[:, None, None], cur, recon)
+            # The side that lost carries no levels; mode16 stays.
+            z_dc = z_dc.masked_fill(i4_sel[:, None, None], 0)
+            z_ac = z_ac.masked_fill(i4_sel[:, None, None, None], 0)
+            lev4 = T.zigzag(torch.stack(lev4, dim=1)).masked_fill(
+                ~i4_sel[:, None, None], 0)
+            modes4 = torch.stack(modes4, dim=1).masked_fill(
+                ~i4_sel[:, None], 0)
+
+        # ---- chroma: joint U+V mode decision by SAD ----
+        ru_, rv_ = st["recon_u"], st["recon_v"]
+        ou, ov = orig_u[r, c], orig_v[r, c]
+        preds_u = intra_ops.pred_chroma_all(
+            ru_[rm1, c, 7, :], ru_[r, cm1, :, 7], ru_[rm1, cm1, 7, 7],
+            avail_top, avail_left)
+        preds_v = intra_ops.pred_chroma_all(
+            rv_[rm1, c, 7, :], rv_[r, cm1, :, 7], rv_[rm1, cm1, 7, 7],
+            avail_top, avail_left)
+        ccost = torch.where(
+            intra_ops.mode_available_chroma(avail_top, avail_left),
+            intra_ops.sad_cost(preds_u, ou) + intra_ops.sad_cost(preds_v, ov),
+            unavailable)
+        cmode = torch.argmin(ccost, dim=-1)
+        zdc_u, zac_u, recon_u = chroma_code(ou, preds_u[lanes, cmode])
+        zdc_v, zac_v, recon_v = chroma_code(ov, preds_v[lanes, cmode])
+
+        st["recon_y"][r, c] = recon
+        st["recon_u"][r, c] = recon_u
+        st["recon_v"][r, c] = recon_v
+        st["mode16"][r, c] = mode.to(i32)
+        st["chroma_mode"][r, c] = cmode.to(i32)
+        st["dc_levels"][r, c] = T.zigzag(z_dc)
+        st["ac_levels"][r, c] = T.zigzag(z_ac)[..., 1:]
+        st["cdc_levels"][r, c] = torch.stack([zdc_u, zdc_v], dim=1)
+        st["cac_levels"][r, c] = torch.stack(
+            [T.zigzag(zac_u)[..., 1:], T.zigzag(zac_v)[..., 1:]], dim=1)
+        if i4x4:
+            st["is_i4"][r, c] = i4_sel
+            st["modes4"][r, c] = modes4
+            st["luma4_levels"][r, c] = lev4
+
+    H, W = y.shape
+    for k, shape in (("recon_y", (H, W)), ("recon_u", (H // 2, W // 2)),
+                     ("recon_v", (H // 2, W // 2))):
+        st[k] = st[k].transpose(1, 2).reshape(shape).to(torch.uint8)
+    return st
+
+
+def intra_encode(y, u, v, qp: int, qp_c: int, row_has_top,
+                 i4x4: bool = False):
+    """The IDR's intra wavefront, as intra_encode_plain defines it. On CPU
+    tensors it runs the plain version; on CUDA tensors it launches the
+    kernels (csrc/intra_wave.cu, one a wave) on the current stream, counts
+    the call in `intra_encode.launches` and the kernels it enqueued in
+    `intra_encode.kernel_launches`."""
+    if y.device.type == "cpu":
+        return intra_encode_plain(y, u, v, qp, qp_c, row_has_top, i4x4)
+    out = launch_intra_encode(y, u, v, qp, qp_c, row_has_top, i4x4)
+    n = kernel_launches(y.shape[0] // 16, y.shape[1] // 16, i4x4)
+    with _COUNT_LOCK:  # sessions, tiles and GOP threads call it at once
+        intra_encode.launches += 1
+        intra_encode.kernel_launches += n
+    return out
+
+
+intra_encode.launches = intra_encode.kernel_launches = 0
+_COUNT_LOCK = threading.Lock()
 
 
 def stream_prefix_words(max_bits: int, cap: int, bucket: int = 8192) -> int:
@@ -209,157 +387,11 @@ class FrameEncoder:
 
     def _encode_iframe_device(self, y, u, v, qp: int, qp_c: int,
                               deblock: bool = False, i4x4: bool = False):
-        R, C = self.n_rows, self.n_cols
-        dev = y.device
-        i32 = torch.int32
-        orig_y = y.reshape(R, 16, C, 16).transpose(1, 2)  # (R, C, 16, 16)
-        orig_u = u.reshape(R, 8, C, 8).transpose(1, 2)
-        orig_v = v.reshape(R, 8, C, 8).transpose(1, 2)
-        st = {
-            "recon_y": torch.zeros((R, C, 16, 16), dtype=i32, device=dev),
-            "recon_u": torch.zeros((R, C, 8, 8), dtype=i32, device=dev),
-            "recon_v": torch.zeros((R, C, 8, 8), dtype=i32, device=dev),
-            "mode16": torch.zeros((R, C), dtype=i32, device=dev),
-            "chroma_mode": torch.zeros((R, C), dtype=i32, device=dev),
-            "dc_levels": torch.zeros((R, C, 16), dtype=i32, device=dev),
-            "ac_levels": torch.zeros((R, C, 16, 15), dtype=i32, device=dev),
-            "cdc_levels": torch.zeros((R, C, 2, 4), dtype=i32, device=dev),
-            "cac_levels": torch.zeros((R, C, 2, 4, 15), dtype=i32, device=dev),
-        }
-        if i4x4:
-            st["is_i4"] = torch.zeros((R, C), dtype=torch.bool, device=dev)
-            st["modes4"] = torch.zeros((R, C, 16), dtype=i32, device=dev)
-            st["luma4_levels"] = torch.zeros((R, C, 16, 16), dtype=i32,
-                                             device=dev)
-            # Mode-bit overhead of I_4x4 (about 16 x 2.5 bits), scaled by the
-            # quantizer step so that the trade follows the QP.
-            bias = 40 << (qp // 6)
-        skew = 2 if i4x4 else 1
-        unavailable = torch.tensor(1 << 30, dtype=i32, device=dev)
-
-        def chroma_code(o_c, pred_c):
-            w_c = T.forward_4x4(_mb_blocks8(o_c - pred_c))  # (N, 4, 4, 4)
-            dc2 = w_c[:, :, 0, 0].reshape(-1, 2, 2)
-            z2 = T.quant_dc_2x2(T.hadamard_2x2(dc2), qp_c, intra=True)
-            d2 = T.dequant_dc_2x2(T.hadamard_2x2(z2), qp_c)
-            z_cac = T.quant_4x4(w_c, qp_c, intra=True)
-            z_cac[:, :, 0, 0] = 0
-            d_c = T.dequant_4x4(z_cac, qp_c)
-            d_c[:, :, 0, 0] = d2.reshape(-1, 4)
-            recon_c = (pred_c + _blocks8_mb(T.inverse_4x4(d_c))).clamp(0, 255)
-            return z2.reshape(-1, 4), z_cac, recon_c
-
-        for k in range(skew * (R - 1) + C):
-            r, c = wave_lanes(k, R, C, skew, dev)
-            lanes = torch.arange(len(r), device=dev)
-            avail_top = self._row_has_top[r]
-            avail_left = c > 0
-            rm1 = (r - 1).clamp(min=0)
-            cm1 = (c - 1).clamp(min=0)
-
-            # ---- luma: I_16x16 mode decision by SATD, first minimum ----
-            ry = st["recon_y"]
-            o = orig_y[r, c]  # (N, 16, 16)
-            top, left = ry[rm1, c, 15, :], ry[r, cm1, :, 15]
-            top_left = ry[rm1, cm1, 15, 15]
-            preds = intra_ops.pred_16x16_all(top, left, top_left, avail_top,
-                                             avail_left)
-            cost = torch.where(
-                intra_ops.mode_available_16x16(avail_top, avail_left),
-                intra_ops.satd_cost(preds, o), unavailable)
-            mode = torch.argmin(cost, dim=-1)
-            pred = preds[lanes, mode]
-
-            w = T.forward_4x4(_mb_blocks(o - pred))  # (N, 16, 4, 4)
-            z_dc = T.quant_dc_4x4(T.hadamard_4x4(w[:, :, 0, 0].reshape(-1, 4, 4)),
-                                  qp)
-            d_dc = T.dequant_dc_4x4(T.hadamard_4x4(z_dc), qp)
-            z_ac = T.quant_4x4(w, qp, intra=True)
-            z_ac[:, :, 0, 0] = 0
-            d = T.dequant_4x4(z_ac, qp)
-            d[:, :, 0, 0] = d_dc.reshape(-1, 16)
-            recon = (pred + _blocks_mb(T.inverse_4x4(d))).clamp(0, 255)
-
-            if i4x4:
-                # ---- the I_4x4 candidate: per block the SATD-best of the
-                # nine modes (first minimum), coded and reconstructed ----
-                modes4 = [None] * 16  # z-scan order
-                lev4 = [None] * 16  # raster block order
-                costs4 = []
-
-                def block_step(z, b, y0, x0, preds4, ok4):
-                    ob = o[:, y0 : y0 + 4, x0 : x0 + 4]
-                    c4 = torch.where(ok4, intra_ops.satd_cost(preds4, ob),
-                                     unavailable)
-                    m4 = torch.argmin(c4, dim=-1)
-                    p4 = preds4[lanes, m4]
-                    zl = T.quant_4x4(T.forward_4x4(ob - p4), qp, intra=True)
-                    modes4[z] = m4.to(i32)
-                    lev4[b] = zl
-                    costs4.append(torch.gather(c4, 1, m4[:, None])[:, 0])
-                    return (p4 + T.inverse_4x4(T.dequant_4x4(zl, qp))).clamp(
-                        0, 255)
-
-                # The top-right MB's column is clamped: the last column has
-                # no MB to its right, and tr_mb_ok says so.
-                cur = i4_chain(
-                    top, left, top_left,
-                    ry[rm1, (c + 1).clamp(max=C - 1), 15, 0:4], avail_top,
-                    avail_left, avail_top & (c < C - 1), block_step)
-                cost4 = torch.stack(costs4).sum(dim=0, dtype=i32)
-                i4_sel = cost4 + bias < cost.min(dim=-1).values
-                recon = torch.where(i4_sel[:, None, None], cur, recon)
-                # The side that lost carries no levels; mode16 stays.
-                z_dc = z_dc.masked_fill(i4_sel[:, None, None], 0)
-                z_ac = z_ac.masked_fill(i4_sel[:, None, None, None], 0)
-                lev4 = T.zigzag(torch.stack(lev4, dim=1)).masked_fill(
-                    ~i4_sel[:, None, None], 0)
-                modes4 = torch.stack(modes4, dim=1).masked_fill(
-                    ~i4_sel[:, None], 0)
-
-            # ---- chroma: joint U+V mode decision by SAD ----
-            ru_, rv_ = st["recon_u"], st["recon_v"]
-            ou, ov = orig_u[r, c], orig_v[r, c]
-            preds_u = intra_ops.pred_chroma_all(
-                ru_[rm1, c, 7, :], ru_[r, cm1, :, 7], ru_[rm1, cm1, 7, 7],
-                avail_top, avail_left)
-            preds_v = intra_ops.pred_chroma_all(
-                rv_[rm1, c, 7, :], rv_[r, cm1, :, 7], rv_[rm1, cm1, 7, 7],
-                avail_top, avail_left)
-            ccost = torch.where(
-                intra_ops.mode_available_chroma(avail_top, avail_left),
-                intra_ops.sad_cost(preds_u, ou) + intra_ops.sad_cost(preds_v, ov),
-                unavailable)
-            cmode = torch.argmin(ccost, dim=-1)
-            zdc_u, zac_u, recon_u = chroma_code(ou, preds_u[lanes, cmode])
-            zdc_v, zac_v, recon_v = chroma_code(ov, preds_v[lanes, cmode])
-
-            st["recon_y"][r, c] = recon
-            st["recon_u"][r, c] = recon_u
-            st["recon_v"][r, c] = recon_v
-            st["mode16"][r, c] = mode.to(i32)
-            st["chroma_mode"][r, c] = cmode.to(i32)
-            st["dc_levels"][r, c] = T.zigzag(z_dc)
-            st["ac_levels"][r, c] = T.zigzag(z_ac)[..., 1:]
-            st["cdc_levels"][r, c] = torch.stack([zdc_u, zdc_v], dim=1)
-            st["cac_levels"][r, c] = torch.stack(
-                [T.zigzag(zac_u)[..., 1:], T.zigzag(zac_v)[..., 1:]], dim=1)
-            if i4x4:
-                st["is_i4"][r, c] = i4_sel
-                st["modes4"][r, c] = modes4
-                st["luma4_levels"][r, c] = lev4
-
-        ry = st["recon_y"].transpose(1, 2).reshape(self.height, self.width)
-        ru = st["recon_u"].transpose(1, 2).reshape(self.height // 2,
-                                                   self.width // 2)
-        rv = st["recon_v"].transpose(1, 2).reshape(self.height // 2,
-                                                   self.width // 2)
+        st = intra_encode(y, u, v, qp, qp_c, self._row_has_top, i4x4)
         if deblock:
-            ry, ru, rv = deblock_iframe(ry, ru, rv, qp, qp_c, R, C,
-                                        self.deblock_slice_starts)
-        else:
-            ry, ru, rv = (x.to(torch.uint8) for x in (ry, ru, rv))
-        st["recon_y"], st["recon_u"], st["recon_v"] = ry, ru, rv
+            st["recon_y"], st["recon_u"], st["recon_v"] = deblock_iframe(
+                st["recon_y"], st["recon_u"], st["recon_v"], qp, qp_c,
+                self.n_rows, self.n_cols, self.deblock_slice_starts)
         return st
 
     # ------------------------------------------------------------------ inter

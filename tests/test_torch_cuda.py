@@ -776,3 +776,140 @@ def test_pframe_core_kernel_in_two_threads(cuda_device):
     for t in threads:
         t.join()
     assert errors == []
+
+
+# ----------------------------------------------- the intra wavefront kernels
+
+
+def _intra_kernels(planes, qp, starts, i4x4):
+    """Both counted wrappers on one picture: (the encode's dict, the
+    reconstruction of its symbols)."""
+    from chip_smoke import intra_recon_args
+    from media_tpu_torch.ops.transform import chroma_qp
+    from media_tpu_torch.pipeline import decoder_tpu as dt
+    from media_tpu_torch.pipeline import encoder as en
+
+    R, C = planes[0].shape[0] // 16, planes[0].shape[1] // 16
+    has_top = dt.row_has_top(R, starts, planes[0].device)
+    enc = en.intra_encode(*planes, qp, int(chroma_qp(qp)), has_top, i4x4)
+    return enc, dt.intra_recon(*intra_recon_args(R, C, enc, qp, starts))
+
+
+def _intra_plain(planes, qp, starts, i4x4):
+    from chip_smoke import intra_recon_args
+    from media_tpu_torch.ops.transform import chroma_qp
+    from media_tpu_torch.pipeline import decoder_tpu as dt
+    from media_tpu_torch.pipeline import encoder as en
+
+    R, C = planes[0].shape[0] // 16, planes[0].shape[1] // 16
+    has_top = dt.row_has_top(R, starts, planes[0].device)
+    enc = en.intra_encode_plain(*planes, qp, int(chroma_qp(qp)), has_top,
+                                i4x4)
+    return enc, dt.intra_recon_plain(*intra_recon_args(R, C, enc, qp, starts))
+
+
+def _assert_intra_equal(got, want, what):
+    from chip_smoke import _intra_err
+
+    assert _intra_err(got[0], want[0]) == 0, (what, "encode")
+    assert all(p.dtype == torch.uint8 for p in got[1]), what
+    assert _intra_err(got[1], want[1]) == 0, (what, "recon")
+
+
+# One MB, one row, one column, a small grid and 1080p: flat planes (ties
+# everywhere) and the structured picture with a slice start, with and
+# without the I_4x4 decision; noise at QP 0 and QP 51 below 1080p.
+@pytest.mark.parametrize("R,C", [(1, 1), (1, 5), (5, 1), (6, 9), (68, 120)])
+def test_intra_kernels_match_plain(cuda_device, R, C):
+    """Every output of intra_encode and intra_recon through the kernels
+    equals the plain loops' on the same device tensors; the kernel calls
+    read nothing back from the device."""
+    from chip_smoke import intra_runs
+    from media_tpu_torch.pipeline import decoder_tpu as dt
+    from media_tpu_torch.pipeline import encoder as en
+
+    runs = [(label, [p.to(cuda_device) for p in planes], qp, starts)
+            for label, planes, qp, starts in intra_runs(R, C)]
+    from media_tpu_torch.pipeline.intra_wave import kernel_launches
+
+    _intra_kernels(runs[0][1], 28, (), True)  # build, tables cached
+    before = (en.intra_encode.launches, dt.intra_recon.launches)
+    before_k = en.intra_encode.kernel_launches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = [_intra_kernels(planes, qp, starts, i4x4)
+               for _, planes, qp, starts in runs for i4x4 in (False, True)]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    n = 2 * len(runs)
+    assert (en.intra_encode.launches, dt.intra_recon.launches) == (
+        before[0] + n, before[1] + n)
+    assert en.intra_encode.kernel_launches - before_k == len(runs) * (
+        kernel_launches(R, C, False) + kernel_launches(R, C, True))
+    k = 0
+    for label, planes, qp, starts in runs:
+        for i4x4 in (False, True):
+            want = _intra_plain(planes, qp, starts, i4x4)
+            assert got[k][0]["recon_y"].device == planes[0].device
+            _assert_intra_equal(got[k], want, (label, i4x4))
+            k += 1
+
+
+def test_intra_kernels_match_plain_at_4k(cuda_device):
+    """(135, 240) without the I_4x4 decision: more MB rows and wider waves
+    than a 1080p picture."""
+    from chip_smoke import intra_runs
+
+    for label, planes, qp, starts in intra_runs(135, 240):
+        planes = [p.to(cuda_device) for p in planes]
+        _assert_intra_equal(_intra_kernels(planes, qp, starts, False),
+                            _intra_plain(planes, qp, starts, False), label)
+
+
+def test_intra_kernels_on_their_tensors_device(cuda_device):
+    from chip_smoke import intra_picture
+
+    torch.cuda.set_device(0)
+    planes = intra_picture(3, 4, 5, "structured")
+    want = _intra_plain(planes, 28, (1,), True)
+    for dev in _launch_devices():
+        got = _intra_kernels([p.to(dev) for p in planes], 28, (1,), True)
+        assert torch.cuda.current_device() == 0
+        assert got[0]["mode16"].device == dev and got[1][0].device == dev
+        _assert_intra_equal(
+            ({k: v.cpu() for k, v in got[0].items()},
+             [p.cpu() for p in got[1]]), want, str(dev))
+
+
+def test_intra_kernels_in_two_threads(cuda_device):
+    """Two threads, each on a stream of its own, encode and decode IDRs of
+    their own pictures (one with the I_4x4 decision, one without) 10 times:
+    every result equals its picture's plain version."""
+    import threading
+
+    from chip_smoke import intra_picture
+
+    inputs = [([p.to(cuda_device) for p in intra_picture(17, 30, s,
+                                                         "structured")],
+               i4x4) for s, i4x4 in ((1, True), (2, False))]
+    want = [_intra_plain(planes, 28, (), i4x4) for planes, i4x4 in inputs]
+    errors = []
+
+    def work(i):
+        try:
+            with torch.cuda.stream(torch.cuda.Stream()):
+                planes, i4x4 = inputs[i]
+                for _ in range(10):
+                    got = _intra_kernels(planes, 28, (), i4x4)
+                    torch.cuda.current_stream().synchronize()
+                    _assert_intra_equal(got, want[i], i)
+        except Exception as e:  # reported below
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=work, args=(i,)) for i in (0, 1)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert errors == []
