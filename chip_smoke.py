@@ -35,9 +35,12 @@ Phases, one line each; nothing is caught, any failure exits non-zero:
      ties, constant planes, stripes that tie at the minimum, MVs past the
      far and near edges, noise at QP 0) at search ranges 8 and 4 with the
      QP as an int, a 0-d tensor and a per-MB map, and on two 17-row tiles
-     whose halo rows are their neighbours' rows: every output equal; at
-     1080p both timed on fresh inputs, the search alone too, the device
-     activities and busy time of one call of each; and the intra wavefront
+     whose halo rows are their neighbours' rows, through its int32 entry
+     and its uint8 one (a whole-picture reference whose rows the kernel
+     clamps; the tiles' real halo rows as given): every output equal; at
+     1080p both entries timed on fresh inputs, the search alone too, the
+     device activities and busy time of one call of each; and the intra
+     wavefront
      kernels (csrc/intra_wave.cu) against encoder.intra_encode_plain and
      decoder_tpu.intra_recon_plain at (1,1), (1,5), (5,1), (6,9) and 1080p
      on flat planes (ties everywhere), a structured picture with a slice
@@ -46,7 +49,15 @@ Phases, one line each; nothing is caught, any failure exits non-zero:
      sample equal, the recon kernel on the plain encode's symbols; at
      1080p both timed on fresh inputs beside one run of each plain loop,
      the device activities and busy time of one call of each, the bounds
-     and the time a wave;
+     and the time a wave; and (after the clip is made) the deblocking meta
+     kernel (csrc/deblock_meta.cu) against deblock_meta_plain (build_meta
+     over pframe_bs_grids or intra_bs_grids) at META_SHAPES and 4K on
+     meta_runs' cases (P and I pictures, the QP an int, a 0-d device
+     tensor and a per-MB map, QP 0 and 51, slice starts, MVs 3 and 4
+     quarter-pels apart), at 1080p on the clip's P symbols, and on their
+     four 17-row tiles with a device QP each: every column equal; at 1080p
+     timed by one event pair a launch beside the plain build, its device
+     activities, busy time and byte bound;
   4. native: g++ builds the host library (media_tpu_torch/csrc/*.cpp, tables
      generated from the package); on the symbols of one 1080p I and one P
      frame of the clip, each C++ writer, parser and the transcoder against
@@ -58,8 +69,12 @@ Phases, one line each; nothing is caught, any failure exits non-zero:
      the ones recorded from the JAX package
      (media_tpu_torch/golden_1080p.json, written by
      tools/record_torch_golden.py), P-frame fps, a per-stage split (the
-     P-core and packer kernels beside their plain versions on the frame's
-     own planes and symbols) and
+     P-core kernel through the encoder's uint8 entry, the kernel alone and
+     the int32 entry, and the packer kernel, beside their plain versions on
+     the frame's own planes and symbols; the deblock stage split into the
+     meta kernel, the three plane copies and kernel 1), a [profile] of one
+     whole staged P frame (torch.profiler: device activities by name,
+     device-busy ms, wall ms, idle share) and
      the last recon's PSNR; the same frames once more with
      entropy_mode="host" (the C++ writer): the same AUs, no packer launch,
      its P fps beside the device route's; plus a small clip encoded on CUDA
@@ -81,7 +96,9 @@ Phases, one line each; nothing is caught, any failure exits non-zero:
      loop's bits and QP (exact), the rate controller's floats (1e-5), all
      against the golden, so that a divergence names its first frame; the
      achieved bitrate, P fps, a per-stage split with the P-core kernel
-     beside its plain version and the whole-frame kernel in per-MB-QP mode; then IDR + 4 P with adaptive_qp and IDR + 4 P CBR
+     beside its plain version and the deblock stage's parts in per-MB-QP
+     mode, a [profile] of one whole staged P frame of the CBR + CABAC run;
+     then IDR + 4 P with adaptive_qp and IDR + 4 P CBR
      with CAVLC against their goldens; no refusal of a C++ routine; one
      whole-frame kernel launch per picture;
   8. CABAC decode: TpuDecoder() on phase 7's IDR + 8 P: planes equal to the
@@ -174,9 +191,12 @@ Phases, one line each; nothing is caught, any failure exits non-zero:
      compiler's message and the run goes on; any other failure fails it.
 Phases 9 to 16 hold every AU and decoded picture to the golden as well.
 Phase 3 also runs route wave in two threads, 20 pictures each.
-The packer's, the P core's and the intra kernels' launches are counted
-phase by phase (the counts set to 0 just before a phase and read just
-after; the spawned GOP workers report theirs); the encode, rate, I_4x4,
+The packer's, the P core's, the meta kernel's and the intra kernels'
+launches are counted phase by phase (the counts set to 0 just before a
+phase and read just after; the spawned GOP workers report theirs); every
+phase that deblocks pictures on the card (5-11, 13, 14, 16-18, and 19 where
+libavcodec is there) must have launched the meta kernel; the encode, rate,
+I_4x4,
 tile and GOP-dispatch phases must have launched the packer, every phase
 that encodes P frames on the card (5, 7, 9, 10, 11, 13, 14, 16, 17, 18) the
 P core, the B-GOP's B pictures its search alone, every phase that encodes
@@ -1413,6 +1433,17 @@ def pcore_runs(R, C, device):
     return runs
 
 
+def pcore_whole_u8(planes, rs):
+    """pcore_planes' six int32 planes (of one whole picture, tiles=1) as the
+    encoder holds them: uint8, the reference without its edge-padded halo
+    rows (pframe_core_whole's inputs)."""
+    import torch
+
+    hy, hc = rs + 4, rs // 2 + 2
+    ref = [planes[3][hy:-hy], planes[4][hc:-hc], planes[5][hc:-hc]]
+    return [p.to(torch.uint8).contiguous() for p in list(planes[:3]) + ref]
+
+
 # The intra wavefront kernels' shapes: one MB, one row, one column, a small
 # grid and 1080p with and without the I_4x4 decision; 4K (a plain I_4x4
 # IDR there would take about a minute) without it.
@@ -1477,33 +1508,137 @@ def intra_recon_args(R, C, sym, qp, starts):
             (sym["cdc_levels"], sym["cac_levels"]), qp, starts, i4)
 
 
-def _device_activities(fn, names: bool = False) -> tuple:
-    """Device activities (kernels, memsets, copies) of one call of fn and
-    the sum of their device times in ms, by torch.profiler; with `names`
-    also the sorted set of their names. The trace drops the first
-    activities after it starts (on the H100 it listed 178 of a call's 187
-    launches, and none of a call's one), so 64 small kernels run first and
-    only what starts after the host range around fn is counted; the
-    range's own copy on the device timeline is not an activity."""
+# The deblocking meta kernel's shapes below 1080p: one MB, one row, one
+# column and two small grids (the tests' too); chip_smoke adds 1080p (the
+# clip's symbols) and 4K.
+META_SHAPES = ((1, 1), (1, 4), (3, 1), (2, 3), (3, 4))
+
+
+def meta_symbols(R, C, seed, kind="sparse"):
+    """A (R, C, 386) int16 P symbol tensor made with numpy from `seed`:
+    "sparse" or "dense", a share of 4x4 luma blocks (0.15 or 0.9) with one
+    nonzero level at a random zig-zag position, MVs in -6..6 (neighbours
+    differ by 0 to 12 quarter-pels), chroma levels that the meta does not
+    read; "steps", no level and MVs 3 quarter-pels apart along a row and 4
+    down a column (bS 0 on every vertical MB edge, 1 on every horizontal
+    one)."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    sym = np.zeros((R, C, 386), np.int16)
+    if kind == "steps":
+        sym[..., 0] = 3 * np.arange(C)[None, :]
+        sym[..., 1] = 4 * np.arange(R)[:, None]
+        return torch.as_tensor(sym)
+    share = {"sparse": 0.15, "dense": 0.9}[kind]
+    sym[..., :2] = rng.integers(-6, 7, (R, C, 2))
+    luma = np.zeros((R, C, 16, 16), np.int16)
+    pos = rng.integers(0, 16, (R, C, 16, 1))
+    val = rng.choice(np.array([-300, -1, 1, 2], np.int16), (R, C, 16, 1))
+    np.put_along_axis(luma, pos, val * (rng.random((R, C, 16, 1)) < share),
+                      axis=3)
+    sym[..., 2:258] = luma.reshape(R, C, 256)
+    sym[..., 258:] = rng.integers(-5, 6, (R, C, 128))
+    return torch.as_tensor(sym)
+
+
+def meta_qps(form: str, R: int, C: int, seed: int) -> tuple:
+    """(qp, qp_c, qp_map) in one of the forms deblock_meta takes: Python
+    ints ("int"; "low" QP 0, "high" QP 51), 0-d int32 tensors ("0d"), or a
+    per-MB (R, C) map ("map" 0..51, "wide" -4..57, which the tables' clips
+    bound)."""
+    import torch
+
+    if form in ("int", "low", "high"):
+        q = {"int": 30, "low": 0, "high": 51}[form]
+        return q, max(q - 1, 0), None
+    if form == "0d":
+        return (torch.tensor(27, dtype=torch.int32),
+                torch.tensor(26, dtype=torch.int32), None)
+    rng = np.random.default_rng(seed)
+    lo, hi = (0, 52) if form == "map" else (-4, 58)
+    return 30, 29, torch.as_tensor(rng.integers(lo, hi, (R, C)),
+                                   dtype=torch.int32)
+
+
+def meta_runs(R, C, device, symbols=None):
+    """The cases the meta kernel is held to its plain version on at an
+    (R, C) grid: [(label, deblock_meta's keyword arguments)] on `device`: P
+    pictures of meta_symbols (or the given symbols) with the QP in every
+    form, a slice start at row R // 2, QP 0 and 51, the "steps" MVs; I
+    pictures with a slice start, a device QP and a QP map."""
+    import torch
+
+    mid = (R // 2,) if R >= 2 else ()
+    runs = []
+    for i, (kind, form, starts, intra) in enumerate((
+            ("sparse", "int", (), False), ("dense", "0d", (), False),
+            ("sparse", "map", mid, False), ("dense", "low", (), False),
+            ("steps", "high", (), False), ("dense", "wide", mid, False),
+            (None, "int", mid, True), (None, "0d", (), True),
+            (None, "map", (), True))):
+        seed = 100 * R + 10 * C + i
+        qp, qp_c, qp_map = (q.to(device) if torch.is_tensor(q) else q
+                            for q in meta_qps(form, R, C, seed))
+        if intra:
+            sym, kind = None, "I"
+        elif symbols is not None:
+            sym, kind = symbols, "clip P"
+        else:
+            sym = meta_symbols(R, C, seed, kind).to(device)
+        where = f" slice starts {starts}" if starts else ""
+        runs.append((f"{kind} {form}{where}",
+                     dict(symbols=sym, qp=qp, qp_c=qp_c, slice_starts=starts,
+                          qp_map=qp_map, intra=intra, device=device)))
+    return runs
+
+
+def _device_events(fn) -> list:
+    """The device activities (kernels, memsets, copies) of one call of fn,
+    by torch.profiler. The trace drops the first activities after it starts
+    (on the H100 it listed 178 of a call's 187 launches, and none of a
+    call's one), so 64 small kernels run first. A marker kernel
+    (torch.cuda._sleep's spin kernel) runs just before fn and what starts
+    after it on the device's own clock is fn's: a host range's start, on
+    the host's clock, lost a 0.36 ms kernel's activities in one run. The
+    range's own copy on the device timeline is not an activity. A trace
+    that shows nothing of fn is taken again, up to three times."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
     warm = torch.zeros(1, device="cuda")
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(64):
-            warm.add_(1)
+    for _ in range(3):
         torch.cuda.synchronize()
-        with record_function("chip_smoke.measured"):
-            fn()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(64):
+                warm.add_(1)
             torch.cuda.synchronize()
-    t0 = min(e.time_range.start for e in prof.events()
-             if e.name == "chip_smoke.measured")
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-              and e.time_range.start >= t0
-              and e.name != "chip_smoke.measured"]
+            with record_function("chip_smoke.measured"):
+                torch.cuda._sleep(1000)
+                fn()
+                torch.cuda.synchronize()
+        device = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+                  and e.name != "chip_smoke.measured"]
+        marks = [e.time_range.start for e in device if "spin_kernel" in e.name]
+        if marks:
+            events = [e for e in device if e.time_range.start > max(marks)
+                      and "spin_kernel" not in e.name]
+        else:
+            t0 = min(e.time_range.start for e in prof.events()
+                     if e.name == "chip_smoke.measured")
+            events = [e for e in device if e.time_range.start >= t0]
+        if events:
+            break
+    return events
+
+
+def _device_activities(fn, names: bool = False) -> tuple:
+    """Device activities of one call of fn (_device_events) and the sum of
+    their device times in ms; with `names` also the sorted set of their
+    names."""
+    events = _device_events(fn)
     out = (len(events), sum(e.time_range.elapsed_us() for e in events) / 1e3)
     return out + (sorted({e.name for e in events}),) if names else out
 
@@ -1622,12 +1757,12 @@ def phase_kernel_pack(smi: str) -> dict:
 
 
 def _pcore_bound(planes, out, rs: int) -> dict:
-    """The least time the card could take for the P core: the six int32
-    input planes read once, the symbols, recon planes and SAD total written
-    once, over the memory rate; against three operations (subtract,
-    absolute value, accumulate) per sample of every full-pel and quarter-pel
-    candidate over the ALU rate (a floor: the 6-tap filters, the chroma MC
-    and the transforms are more)."""
+    """The least time the card could take for the P core: the six input
+    planes read once (uint8 on the encoder's entry), the symbols, recon
+    planes and SAD total written once, over the memory rate; against three
+    operations (subtract, absolute value, accumulate) per sample of every
+    full-pel and quarter-pel candidate over the ALU rate (a floor: the 6-tap
+    filters, the chroma MC and the transforms are more)."""
     n_mbs = out["symbols"].shape[0] * out["symbols"].shape[1]
     n_bytes = _nbytes(*planes, *out.values())
     ops = n_mbs * ((2 * rs + 1) ** 2 + 49) * 256 * 3
@@ -1651,14 +1786,18 @@ def phase_kernel_pcore(smi: str) -> dict:
     pcore_runs at every shape of PCORE_SHAPES and on two 17-row tiles of a
     1080p picture cut in four, whose halo rows are the neighbours' rows:
     every symbol, recon sample and SAD total, and the search alone's MVs,
-    predictions and costs, equal. At 1080p both timed on fresh inputs, the
-    search alone too; one call of each through torch.profiler for its
-    device activities and busy time."""
+    predictions and costs, equal; through the int32 entry and the uint8
+    one (on the whole-picture reference whose rows the kernel clamps, and
+    on the tiles' real halo rows). At 1080p both timed on fresh inputs, the
+    uint8 whole-picture entry (the encoder's), the int32 entry and the
+    search alone; one call of each through torch.profiler for its device
+    activities and busy time."""
     import torch
 
     from media_tpu_torch.pipeline.pframe_core import (
         launch_pframe_core, launch_search_refine_luma, local_pframe_core,
-        local_pframe_core_plain, search_refine_luma_plain, to_mbs)
+        local_pframe_core_plain, pframe_core_whole, search_refine_luma_plain,
+        to_mbs)
 
     dev = torch.device("cuda")
     t0 = time.perf_counter()
@@ -1682,36 +1821,51 @@ def phase_kernel_pcore(smi: str) -> dict:
         for label, planes, rs, qp, qp_c in runs:
             got = launch_pframe_core(*planes, qp, qp_c, rs, R, C)
             want = local_pframe_core_plain(*planes, qp, qp_c, rs, R, C)
+            if "tile" in label:  # uint8 with the real halo rows as given
+                u8 = launch_pframe_core(*(p.to(torch.uint8) for p in planes),
+                                        qp, qp_c, rs, R, C)
+            else:  # uint8, the reference's rows clamped by the kernel
+                u8 = launch_pframe_core(*pcore_whole_u8(planes, rs), qp,
+                                        qp_c, rs, R, C, whole=True)
             cur = to_mbs(planes[0], R, C, 16)
             s_got = launch_search_refine_luma(cur, planes[3], rs, R, C)
             s_want = search_refine_luma_plain(cur, planes[3], rs, R, C)
-            err = max(_core_err(got, want), *(
+            err = max(_core_err(got, want), _core_err(u8, want), *(
                 int((a.long() - b.long()).abs().max())
                 for a, b in zip(s_got, s_want)))
-            if err or any(got[k].dtype != want[k].dtype for k in want):
+            if err or any(got[k].dtype != want[k].dtype
+                          or u8[k].dtype != want[k].dtype for k in want):
                 raise AssertionError(f"P-core kernel vs plain, {what} "
                                      f"{label}: max |err| {err}")
             max_err = max(max_err, err)
             labels.append(label)
         print(f"[kernel] pframe_core {what} equal=True (symbols, recon, "
-              f"sad_total; the search's qmv, pred, cost) on {len(runs)} "
-              f"runs: {', '.join(labels)}")
+              f"sad_total through the int32 and the uint8 entries; the "
+              f"search's qmv, pred, cost) on {len(runs)} runs: "
+              f"{', '.join(labels)}")
 
     # 1080p at the session's operating point: rs 8, QP 30.
     R, C, rs, qp, qp_c = R_MB, C_MB, 8, QP, 29
     planes = pcore_planes(R, C, rs, 21, "moving")
     planes = [p.to(dev) for p in planes]
 
+    whole = pcore_whole_u8(planes, rs)
+
     def fresh():
         return [p.clone() for p in planes]
 
-    def kernel(*a):
+    def kernel(*a):  # the encoder's entry: uint8, whole-picture reference
+        return launch_pframe_core(*a, qp, qp_c, rs, R, C, whole=True)
+
+    def kernel_int32(*a):
         return launch_pframe_core(*a, qp, qp_c, rs, R, C)
 
     def plain(*a):
         return local_pframe_core_plain(*a, qp, qp_c, rs, R, C)
 
-    rec = {"ms": _cuda_median_ms(kernel, fresh, 30),
+    rec = {"ms": _cuda_median_ms(kernel, lambda: [p.clone() for p in whole],
+                                 30),
+           "int32_ms": _cuda_median_ms(kernel_int32, fresh, 30),
            "plain_ms": _cuda_median_ms(plain, fresh, 5)}
     cur = to_mbs(planes[0], R, C, 16)
     rec["search_ms"] = _cuda_median_ms(
@@ -1721,22 +1875,32 @@ def phase_kernel_pcore(smi: str) -> dict:
         lambda c, r: search_refine_luma_plain(c, r, rs, R, C),
         lambda: (cur.clone(), planes[3].clone()), 5)
     want = plain(*planes)
-    rec["max_abs_err"] = max(max_err, _core_err(kernel(*planes), want))
+    rec["max_abs_err"] = max(max_err, _core_err(kernel(*whole), want),
+                             _core_err(kernel_int32(*planes), want))
     (rec["device_activities_per_call"], rec["device_busy_ms"],
-     activities) = _device_activities(lambda: kernel(*planes), names=True)
+     activities) = _device_activities(lambda: kernel(*whole), names=True)
+    (rec["int32_device_activities_per_call"],
+     rec["int32_device_busy_ms"]) = _device_activities(
+        lambda: kernel_int32(*planes))
     (rec["plain_device_activities_per_call"],
      rec["plain_device_busy_ms"]) = _device_activities(lambda: plain(*planes))
-    rec.update(_pcore_bound(planes, want, rs))
+    rec.update(_pcore_bound(whole, want, rs))
     before = local_pframe_core.launches
     local_pframe_core(*planes, qp, qp_c, rs, R, C)
-    if local_pframe_core.launches != before + 1:
-        raise AssertionError("local_pframe_core did not count its launch")
+    pframe_core_whole(*whole, qp, qp_c, rs, R, C)
+    if local_pframe_core.launches != before + 2:
+        raise AssertionError("local_pframe_core or pframe_core_whole did not "
+                             "count its launch")
     print(f"[kernel] pframe_core 1080p (R={R}, C={C}, rs {rs}, QP {qp}/{qp_c}, "
-          f"a moving picture) kernel {rec['ms']:.4f} ms (median of 30, each "
-          f"on fresh inputs, the wrapper's host work inside the event pair), "
-          f"{rec['device_activities_per_call']} device activities a call "
-          f"({', '.join(activities)}) busy {rec['device_busy_ms']:.4f} ms by "
-          f"the profiler; the search alone {rec['search_ms']:.4f} ms (plain "
+          f"a moving picture) kernel {rec['ms']:.4f} ms through the uint8 "
+          f"entry on a whole-picture reference (the encoder's; median of 30, "
+          f"each on fresh inputs, the wrapper's host work inside the event "
+          f"pair), {rec['device_activities_per_call']} device activities a "
+          f"call ({', '.join(activities)}) busy {rec['device_busy_ms']:.4f} "
+          f"ms by the profiler; the int32 entry on extended planes "
+          f"{rec['int32_ms']:.4f} ms (busy "
+          f"{rec['int32_device_busy_ms']:.4f}); the search alone "
+          f"{rec['search_ms']:.4f} ms (plain "
           f"{rec['search_plain_ms']:.3f}); plain {rec['plain_ms']:.3f} ms "
           f"(median of 5), {rec['plain_device_activities_per_call']} device "
           f"activities busy {rec['plain_device_busy_ms']:.3f} ms; bound "
@@ -1924,6 +2088,176 @@ def phase_kernel_intra(smi: str) -> tuple:
     return enc, rec
 
 
+def _meta_bound(n_mbs: int, meta, qp_map=None) -> dict:
+    """The least time the card could take for the meta of n_mbs MBs: the MV
+    and the 256 luma levels of each MB (int16) and the QP map read once,
+    the int32 meta written once, over the memory rate; against one
+    operation per level (the nonzero test) and four per meta column (the
+    strength, the table row, the lookup, the store) over the ALU rate."""
+    n_bytes = n_mbs * (2 + 256) * 2 + _nbytes(meta) + (
+        0 if qp_map is None else _nbytes(qp_map))
+    ops = n_mbs * (256 + 4 * meta.shape[1])
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_S, ops / PEAK_OPS_S
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_bytes": n_bytes, "bound_ops": ops,
+            "library_ms": None}  # no PyTorch call builds deblocking meta
+
+
+def clip_pframe_symbols(bufs, qp: int = QP, rs: int = 8):
+    """The 1080p clip's frame 1 coded against its frame 0 by the P-core
+    kernel at `qp`: the (R, C, 386) int16 symbols on the card, uncounted."""
+    import torch
+
+    from media_tpu_torch.ops.transform import chroma_qp
+    from media_tpu_torch.pipeline.pframe_core import launch_pframe_core
+    from media_tpu_torch.utils import yuv
+
+    planes = [torch.as_tensor(yuv.pad_to_mb_grid(p, s)).to("cuda")
+              for buf in bufs[:2]
+              for p, s in zip(yuv.split_i420(buf, WIDTH, HEIGHT), (16, 8, 8))]
+    return launch_pframe_core(*planes[3:], *planes[:3], qp,
+                              int(chroma_qp(qp)), rs, R_MB, C_MB,
+                              whole=True)["symbols"]
+
+
+def phase_kernel_meta(smi: str, bufs) -> dict:
+    """The deblocking meta kernel against its plain version (build_meta
+    over pframe_bs_grids or intra_bs_grids) on every run of meta_runs at
+    every shape of META_SHAPES, at 4K, at 1080p on the clip's P symbols, and
+    on the four 17-row tiles of those symbols with a device QP each (one
+    with a QP map): every meta column equal. At 1080p the kernel timed by
+    one CUDA event pair a launch (median of 30) at uniform QP, with a QP map
+    and on an I picture, beside the plain version; one call of each through
+    torch.profiler for its device activities and busy time."""
+    import torch
+
+    from media_tpu_torch.ops.transform import chroma_qp
+    from media_tpu_torch.pipeline.deblock_apply import (
+        deblock_meta, deblock_meta_plain, launch_deblock_meta)
+    from media_tpu_torch.pipeline.pframe_core import chroma_qp_device
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    max_err = 0
+
+    def check(what, R, C, runs):
+        nonlocal max_err
+        for label, kw in runs:
+            got = launch_deblock_meta(**kw, R=R, C=C)
+            want = deblock_meta_plain(**kw, R=R, C=C)
+            err = int((got.long() - want.long()).abs().max())
+            if err or got.dtype != want.dtype or got.shape != want.shape:
+                bad = (got != want).any(dim=0).nonzero().flatten().tolist()
+                raise AssertionError(f"meta kernel vs plain, {what} {label}: "
+                                     f"max |err| {err}, columns {bad}")
+            max_err = max(max_err, err)
+        print(f"[kernel] deblock_meta {what} equal=True (every column) on "
+              f"{len(runs)} runs: {', '.join(label for label, _ in runs)}")
+
+    for R, C in META_SHAPES + ((135, 240),):
+        check(f"{R}x{C}", R, C, meta_runs(R, C, dev))
+    R, C = R_MB, C_MB
+    qp, qp_c = QP, int(chroma_qp(QP))
+    sym = clip_pframe_symbols(bufs)
+    runs = meta_runs(R, C, dev, symbols=sym)
+    check("1080p (the clip's P symbols)", R, C, runs)
+    tiles = []
+    for t in range(4):
+        q = torch.tensor(28 + 2 * t, dtype=torch.int32, device=dev)
+        tmap = None if t != 2 else (q + torch.arange(
+            17 * C, device=dev).reshape(17, C) % 3 - 1)
+        tiles.append((f"tile {t} of 4 device QP {28 + 2 * t}"
+                      + (" QP map" if tmap is not None else ""),
+                      dict(symbols=sym[17 * t : 17 * (t + 1)], qp=q,
+                           qp_c=chroma_qp_device(q), qp_map=tmap)))
+    check("17x120 tiles of the clip's P symbols", 17, C, tiles)
+
+    qp_map = runs[2][1]["qp_map"]
+    rec = {
+        "ms": _cuda_median_ms(lambda s: launch_deblock_meta(s, qp, qp_c, R, C),
+                              lambda: (sym,), 30),
+        "plain_ms": _cuda_median_ms(
+            lambda s: deblock_meta_plain(s, qp, qp_c, R, C), lambda: (sym,),
+            10),
+        "qp_map_ms": _cuda_median_ms(
+            lambda s: launch_deblock_meta(s, qp, qp_c, R, C, qp_map=qp_map),
+            lambda: (sym,), 30),
+        "qp_map_plain_ms": _cuda_median_ms(
+            lambda s: deblock_meta_plain(s, qp, qp_c, R, C, qp_map=qp_map),
+            lambda: (sym,), 10),
+        "intra_ms": _cuda_median_ms(
+            lambda: launch_deblock_meta(None, qp, qp_c, R, C, intra=True,
+                                        device=dev), lambda: (), 30),
+        "intra_plain_ms": _cuda_median_ms(
+            lambda: deblock_meta_plain(None, qp, qp_c, R, C, intra=True,
+                                       device=dev), lambda: (), 10),
+        "max_abs_err": max_err,
+    }
+    meta = launch_deblock_meta(sym, qp, qp_c, R, C)
+    (rec["device_activities_per_call"], rec["device_busy_ms"],
+     activities) = _device_activities(
+        lambda: launch_deblock_meta(sym, qp, qp_c, R, C), names=True)
+    (rec["plain_device_activities_per_call"],
+     rec["plain_device_busy_ms"]) = _device_activities(
+        lambda: deblock_meta_plain(sym, qp, qp_c, R, C))
+    rec.update(_meta_bound(R * C, meta))
+    before = deblock_meta.launches
+    deblock_meta(sym, qp, qp_c, R, C)
+    if deblock_meta.launches != before + 1:
+        raise AssertionError("deblock_meta did not count its launch")
+    print(f"[kernel] deblock_meta 1080p (R={R}, C={C}, the clip's P symbols, "
+          f"QP {qp}/{qp_c}) kernel {rec['ms']:.4f} ms (median of 30, one "
+          f"event pair a launch, the wrapper's host work inside it), with a "
+          f"QP map {rec['qp_map_ms']:.4f}, an I picture "
+          f"{rec['intra_ms']:.4f}; {rec['device_activities_per_call']} "
+          f"device activities a call ({', '.join(activities)}) busy "
+          f"{rec['device_busy_ms']:.4f} ms by the profiler; plain "
+          f"{rec['plain_ms']:.3f} ms (median of 10; QP map "
+          f"{rec['qp_map_plain_ms']:.3f}, I picture "
+          f"{rec['intra_plain_ms']:.3f}), "
+          f"{rec['plain_device_activities_per_call']} device activities busy "
+          f"{rec['plain_device_busy_ms']:.3f} ms; bound "
+          f"{rec['bound_ms']:.6f} ms by {rec['bound_by']} "
+          f"({rec['bound_bytes']} bytes, {rec['bound_ops']} operations); "
+          f"phase {time.perf_counter() - t0:.1f} s | {smi}")
+    return rec
+
+
+def _profile_frame(sess, bufs, what: str, smi: str) -> dict:
+    """Three staged P frames of `sess` (1080p) from the three I420 `bufs`:
+    a warm-up; one timed on the host clock to the device's synchronise (the
+    wall ms); the next through torch.profiler (_device_events): its device
+    activities by name and their device-busy ms; and the idle share 1 -
+    busy / wall. The session goes on from the frames."""
+    import torch
+
+    sess.encode_frames_staged(sess.upload_frames(bufs[:1]))
+    chunks = [sess.upload_frames([b]) for b in bufs[1:3]]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    aus = sess.encode_frames_staged(chunks[0])
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    by_name = {}
+    for e in _device_events(lambda: sess.encode_frames_staged(chunks[1])):
+        n, ms = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, ms + e.time_range.elapsed_us() / 1e3)
+    busy = sum(ms for _, ms in by_name.values())
+    n_act = sum(n for n, _ in by_name.values())
+    rec = {"activities": n_act, "busy_ms": busy, "wall_ms": wall,
+           "idle_share": 1.0 - busy / wall, "bytes": len(aus[0])}
+    names = sorted(by_name.items(), key=lambda kv: -kv[1][1])
+    print(f"[profile] {what}: a staged {WIDTH}x{HEIGHT} P frame "
+          f"({rec['bytes']} B) after a warm-up frame, wall {wall:.3f} ms; "
+          f"the next frame through torch.profiler: {n_act} device "
+          f"activities, busy {busy:.4f} ms, idle share "
+          f"{rec['idle_share']:.4f} of that wall; by name (count, ms): "
+          + "; ".join(f"{name[:70]} x{n} {ms:.4f}"
+                      for name, (n, ms) in names) + f" | {smi}")
+    return rec
+
+
 def _beside_plain(what: str, kernel, plain, err, *args, **kw) -> tuple:
     """ms of a kernel's raw launch and of its plain version on the same
     inputs (mean of 3 after a warm-up, each synchronised), after holding
@@ -1937,14 +2271,6 @@ def _beside_plain(what: str, kernel, plain, err, *args, **kw) -> tuple:
     if err(box["kernel"], box["plain"]):
         raise AssertionError(f"{what}: kernel and plain version differ")
     return t_kernel, t_plain, box["kernel"]
-
-
-def _core_beside_plain(what: str, *args) -> tuple:
-    from media_tpu_torch.pipeline.pframe_core import (
-        launch_pframe_core, local_pframe_core_plain)
-
-    return _beside_plain(what, launch_pframe_core, local_pframe_core_plain,
-                         _core_err, *args)
 
 
 def _pack_beside_plain(what: str, *args, **kw) -> tuple:
@@ -2097,64 +2423,130 @@ def _first_difference(what: str, aus, want_sha, want_bytes) -> None:
                 f"{[len(a) for a in aus]} against {want_bytes[:len(aus)]}")
 
 
+def _pcore_stage(enc, ref, frame, qp, qp_c, rs: int, what: str) -> tuple:
+    """The P-core stage of one frame as FrameEncoder._pframe_core runs it on
+    the card: the uint8 entry on the session's planes, the reference with no
+    halo rows, no cast or pad step before it (mean of 3, each synchronised,
+    beside the plain version, equal); the kernel alone by one event pair a
+    launch (median of 20); and the int32 entry as the B core's callers use
+    it, its casts and row pads apart. Returns ({ms}, the kernel's result)."""
+    import torch
+
+    from media_tpu_torch.pipeline.pframe_core import (
+        launch_pframe_core, pframe_core_whole_plain)
+
+    R, C = enc.n_rows, enc.n_cols
+    t_stage, t_plain, out = _beside_plain(
+        what, lambda *a: launch_pframe_core(*a, whole=True),
+        pframe_core_whole_plain, _core_err, *frame, *ref, qp, qp_c, rs, R, C)
+    t_kernel = _cuda_median_ms(
+        lambda *a: launch_pframe_core(*a, qp, qp_c, rs, R, C, whole=True),
+        lambda: (*frame, *ref), 20)
+    box = {}
+
+    def prep():  # the int32 entry's casts and row pads
+        box["args"] = [p.to(torch.int32)
+                       for p in (*frame, *enc._ref_ext(ref, rs))]
+
+    t_prep = _cuda_ms(prep, 3)
+    t_int32 = _cuda_ms(
+        lambda: launch_pframe_core(*box["args"], qp, qp_c, rs, R, C), 3)
+    return {"stage_ms": t_stage, "kernel_ms": t_kernel, "plain_ms": t_plain,
+            "int32_prep_ms": t_prep, "int32_ms": t_int32}, out
+
+
+def _pcore_text(t: dict) -> str:
+    return (f"p_core {t['stage_ms']:.3f} (the uint8 entry on the session's "
+            f"planes, no cast or pad step; the kernel alone "
+            f"{t['kernel_ms']:.4f} by events, median of 20; plain "
+            f"{t['plain_ms']:.3f}, same outputs; the int32 entry: casts and "
+            f"row pads {t['int32_prep_ms']:.3f} + the kernel "
+            f"{t['int32_ms']:.3f})")
+
+
+def _deblock_stage(out, qp, qp_c, R: int, C: int, qp_map=None) -> dict:
+    """The deblock stage of one frame as deblock_pframe_from_symbols runs it
+    (mean of 3), and its parts: the meta kernel (median of 20 by events;
+    held equal to, and beside, its plain version), the three uint8 plane
+    copies of deblock_frame, and the whole-frame kernel on this frame's
+    planes and meta (median of 20)."""
+    import torch
+
+    from media_tpu_torch.ops.deblock_wave import launch_deblock_wave
+    from media_tpu_torch.pipeline.deblock_apply import (
+        deblock_meta_plain, deblock_pframe_from_symbols, launch_deblock_meta)
+
+    recon = (out["recon_y"], out["recon_u"], out["recon_v"])
+    sym = out["symbols"]
+
+    def copies():
+        return [p.to(torch.uint8, copy=True).contiguous() for p in recon]
+
+    t = {"stage_ms": _cuda_ms(lambda: deblock_pframe_from_symbols(
+        *recon, sym, qp, qp_c, R, C, qp_map=qp_map), 3)}
+    t["meta_ms"] = _cuda_median_ms(
+        lambda s: launch_deblock_meta(s, qp, qp_c, R, C, qp_map=qp_map),
+        lambda: (sym,), 20)
+    t["meta_plain_ms"] = _cuda_ms(lambda: deblock_meta_plain(
+        sym, qp, qp_c, R, C, qp_map=qp_map), 3)
+    meta = launch_deblock_meta(sym, qp, qp_c, R, C, qp_map=qp_map)
+    if not torch.equal(meta, deblock_meta_plain(sym, qp, qp_c, R, C,
+                                                qp_map=qp_map)):
+        raise AssertionError("the frame's meta: kernel and plain differ")
+    t["copies_ms"] = _cuda_ms(copies, 3)
+    t["kernel1_ms"] = _cuda_median_ms(
+        lambda *w: launch_deblock_wave(*w, meta, R, C), copies, 20)
+    return t
+
+
+def _deblock_text(t: dict, mode: str = "") -> str:
+    return (f"deblock {t['stage_ms']:.3f} (the meta kernel "
+            f"{t['meta_ms']:.4f}, median of 20, plain "
+            f"{t['meta_plain_ms']:.3f}; "
+            f"the three plane copies {t['copies_ms']:.4f}; the whole-frame "
+            f"kernel{mode}, median of 20 on this frame's planes, "
+            f"{t['kernel1_ms']:.4f})")
+
+
 def _stage_split(sess, frame_buf, smi: str):
     """ms per stage of one 1080p P frame, each stage run and synchronised
     on its own (outside the pipelined session loop)."""
     import torch
 
     from media_tpu_torch.ops.transform import chroma_qp
-    from media_tpu_torch.ops.deblock_wave import launch_deblock_wave
-    from media_tpu_torch.pipeline.deblock_apply import (
-        build_meta, deblock_pframe_from_symbols, pframe_bs_grids)
     from media_tpu_torch.pipeline.pframe_core import unpack_symbols_device
 
     enc = sess._frame_encoder
     R, C = enc.n_rows, enc.n_cols
     qp, qp_c, rs = QP, int(chroma_qp(QP)), 8
-    y, u, v = (torch.tensor(p, device="cuda") for p in sess._planes(frame_buf))
-    box = {}
-
-    def prep():  # what FrameEncoder._pframe_core does before the core
-        box["args"] = ([p.to(torch.int32) for p in (y, u, v)]
-                       + list(enc._ref_ext(sess.recon, rs)))
-
-    t_prep = _cuda_ms(prep, 3)
-    t_core, t_core_plain, out = _core_beside_plain(
-        "constant-QP P frame", *box["args"], qp, qp_c, rs, R, C)
+    frame = [torch.tensor(p, device="cuda") for p in sess._planes(frame_buf)]
+    t_core, out = _pcore_stage(enc, sess.recon, frame, qp, qp_c, rs,
+                               "constant-QP P frame")
     cap = sess._device_cap()
     t_pack, t_pack_plain, (stream, bits) = _pack_beside_plain(
         "constant-QP P frame", *unpack_symbols_device(out["symbols"]), cap)
-    t_deblock = _cuda_ms(lambda: deblock_pframe_from_symbols(
-        out["recon_y"], out["recon_u"], out["recon_v"], out["symbols"], qp,
-        qp_c, R, C), 3)
-    # The whole-frame kernel alone on this frame's own planes and strengths.
-    meta = build_meta(qp, qp_c, *pframe_bs_grids(out["symbols"], R, C), R, C)
-    t_kernel = _cuda_median_ms(
-        lambda *w: launch_deblock_wave(*w, meta, R, C),
-        lambda: [out[k].to(torch.uint8, copy=True).contiguous() for k in
-                 ("recon_y", "recon_u", "recon_v")], 20)
+    t_db = _deblock_stage(out, qp, qp_c, R, C)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     nbits = int(bits)
     words = stream[: (nbits + 31) // 32 + 1].cpu().numpy().astype(np.uint32)
     sess._pslice_au_packed(words, nbits)
     t_host = (time.perf_counter() - t0) * 1e3
-    print(f"[stages] {WIDTH}x{HEIGHT} P frame ms: p_core {t_prep + t_core:.3f} "
-          f"(int32 casts and row pads {t_prep:.3f}, the kernel {t_core:.3f}; "
-          f"plain {t_core_plain:.3f}, same outputs) cavlc_pack "
-          f"{t_pack:.3f} (the kernel; plain {t_pack_plain:.3f}, same stream "
-          f"and {nbits} bits) deblock {t_deblock:.3f} (of which the kernel, "
-          f"median of 20 on this frame's planes, {t_kernel:.4f}) host_au "
+    print(f"[stages] {WIDTH}x{HEIGHT} P frame ms: {_pcore_text(t_core)} "
+          f"cavlc_pack {t_pack:.3f} (the kernel; plain {t_pack_plain:.3f}, "
+          f"same stream and {nbits} bits) {_deblock_text(t_db)} host_au "
           f"{t_host:.3f} | {smi}")
     return ({"ms_clip_frame": t_pack, "plain_ms_clip_frame": t_pack_plain},
-            {"ms_clip_frame": t_core, "plain_ms_clip_frame": t_core_plain,
-             "prep_ms_clip_frame": t_prep})
+            {f"{k}_clip_frame": v for k, v in t_core.items()},
+            {f"{k}_clip_frame": v for k, v in t_db.items()})
 
 
 def phase_main_path(smi: str, golden: dict, bufs):
-    """The constant-QP encode path. Returns (deblock launches, the IDR + P AUs of the
-    first run, the recon after the IDR, the recon after that run, the staged
-    AUs, the last recon as numpy planes)."""
+    """The constant-QP encode path. Returns (deblock launches, the IDR + P
+    AUs of the first run, the recon after the IDR, the recon after that run,
+    the staged AUs, the last recon as numpy planes, and the stage split's
+    records of the packer, the P core and the deblock stage, the last with
+    the [profile] of one whole staged P frame)."""
     import torch
 
     from media_tpu_torch.entropy.device_cavlc import pack_pslice_device
@@ -2249,7 +2641,11 @@ def phase_main_path(smi: str, golden: dict, bufs):
     print(f"[main] IDR through the Python I-slice writer {t_idr_py * 1e3:.1f} "
           f"ms against {t_idr * 1e3:.1f} ms, same bytes | {smi}")
 
-    pack_rec, core_rec = _stage_split(sess, bufs[2 * N_CQ_P + 1], smi)
+    pack_rec, core_rec, meta_rec = _stage_split(sess, bufs[2 * N_CQ_P + 1],
+                                                smi)
+    meta_rec.update({f"profile_{k}_cq": v for k, v in _profile_frame(
+        sess, bufs[2 * N_CQ_P + 2 : 2 * N_CQ_P + 5],
+        f"constant QP {QP}, CAVLC packed on the card", smi).items()})
 
     # The CPU path is the one the tests hold to the JAX package at small
     # sizes; CUDA must give the same bytes.
@@ -2264,7 +2660,7 @@ def phase_main_path(smi: str, golden: dict, bufs):
         raise AssertionError("64x48 AUs differ between cuda and cpu")
     print("[main] 64x48 IDR + 4 P: cuda AUs == cpu AUs")
     return (launches, aus, recon_idr, recon_run, staged, recon, pack_rec,
-            core_rec)
+            core_rec, meta_rec)
 
 
 def _split(timings, idr: bool) -> str:
@@ -2428,14 +2824,11 @@ def _check_rate_record(name: str, got: dict, want: dict, target: float):
 def _rate_stage_split(sess, frame_buf, qp_f: float, smi: str):
     """ms per stage of one 1080p P frame of the rate-controlled path with
     per-MB QP, each stage run and synchronised on its own: the P core and
-    the packer with a QP map, the deblock stage and the whole-frame kernel
-    alone in per-MB-QP mode, and the host's transcode of the slice."""
+    the packer with a QP map, the deblock stage and its parts in per-MB-QP
+    mode, and the host's transcode of the slice."""
     import torch
 
     from media_tpu_torch.entropy.device_cavlc import _last_coded
-    from media_tpu_torch.ops.deblock_wave import launch_deblock_wave
-    from media_tpu_torch.pipeline.deblock_apply import (
-        build_meta, deblock_pframe_from_symbols, pframe_bs_grids)
     from media_tpu_torch.pipeline.pframe_core import (
         chroma_qp_device, unpack_symbols_device)
 
@@ -2447,16 +2840,9 @@ def _rate_stage_split(sess, frame_buf, qp_f: float, smi: str):
               % 128).to(torch.float32) / 128.0
     qp_map = qp + (thresh < (qp_f - int(qp_f))).to(torch.int32)
     frame = [torch.tensor(p, device=dev) for p in sess._planes(frame_buf)]
-    box = {}
-
-    def prep():  # what FrameEncoder._pframe_core does before the core
-        box["args"] = ([p.to(torch.int32) for p in frame]
-                       + list(enc._ref_ext(sess.recon, 8)))
-
-    t_prep = _cuda_ms(prep, 3)
-    t_core, t_core_plain, out = _core_beside_plain(
-        "per-MB-QP P frame", *box["args"], qp_map, chroma_qp_device(qp_map),
-        8, R, C)
+    t_core, out = _pcore_stage(enc, sess.recon, frame, qp_map,
+                               chroma_qp_device(qp_map), 8,
+                               "per-MB-QP P frame")
     mv, luma, cdc, cac = unpack_symbols_device(out["symbols"])
     cap = sess._device_cap()
 
@@ -2467,16 +2853,7 @@ def _rate_stage_split(sess, frame_buf, qp_f: float, smi: str):
              | (cdc != 0).any(dim=3).any(dim=2)
              | (cac != 0).any(dim=4).any(dim=3).any(dim=2))
     eff = _last_coded(qp_map, coded.reshape(-1), qp).reshape(R, C)
-    recon = (out["recon_y"], out["recon_u"], out["recon_v"])
-    qp_c = chroma_qp_device(qp)
-    t_deblock = _cuda_ms(lambda: deblock_pframe_from_symbols(
-        *recon, out["symbols"], qp, qp_c, R, C, qp_map=eff), 3)
-    meta = build_meta(qp, qp_c, *pframe_bs_grids(out["symbols"], R, C), R, C,
-                      qp_map=eff)
-    t_kernel = _cuda_median_ms(
-        lambda *w: launch_deblock_wave(*w, meta, R, C),
-        lambda: [p.to(torch.uint8, copy=True).contiguous() for p in recon],
-        20)
+    t_db = _deblock_stage(out, qp, chroma_qp_device(qp), R, C, qp_map=eff)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     nbits = int(bits)
@@ -2484,19 +2861,16 @@ def _rate_stage_split(sess, frame_buf, qp_f: float, smi: str):
     au = sess._cabac_au_from_cavlc_stream(words, nbits, int(qp_f), 1)
     t_host = (time.perf_counter() - t0) * 1e3
     print(f"[stages] {WIDTH}x{HEIGHT} P frame of the CBR + CABAC path with "
-          f"per-MB QP {int(qp_f)}/{int(qp_f) + 1} ms: p_core "
-          f"{t_prep + t_core:.3f} (int32 casts and row pads {t_prep:.3f}, the "
-          f"kernel {t_core:.3f}; plain {t_core_plain:.3f}, same outputs) "
+          f"per-MB QP {int(qp_f)}/{int(qp_f) + 1} ms: {_pcore_text(t_core)} "
           f"cavlc_pack {t_pack:.3f} (the kernel; plain {t_pack_plain:.3f}, "
-          f"same stream) deblock {t_deblock:.3f} (of which the "
-          f"kernel in per-MB-QP mode, median of 20 on this frame's planes, "
-          f"{t_kernel:.4f}) host download + C++ transcode + AU {t_host:.3f} "
-          f"({nbits} CAVLC bits -> {len(au)} B) | {smi}")
-    return (t_kernel, {"ms_per_mb_qp_clip_frame": t_pack,
-                       "plain_ms_per_mb_qp_clip_frame": t_pack_plain},
-            {"ms_per_mb_qp_clip_frame": t_core,
-             "plain_ms_per_mb_qp_clip_frame": t_core_plain,
-             "prep_ms_per_mb_qp_clip_frame": t_prep})
+          f"same stream) {_deblock_text(t_db, ' in per-MB-QP mode')} host "
+          f"download + C++ transcode + AU {t_host:.3f} ({nbits} CAVLC bits "
+          f"-> {len(au)} B) | {smi}")
+    return (t_db["kernel1_ms"],
+            {"ms_per_mb_qp_clip_frame": t_pack,
+             "plain_ms_per_mb_qp_clip_frame": t_pack_plain},
+            {f"{k}_per_mb_qp_clip_frame": v for k, v in t_core.items()},
+            {f"{k}_per_mb_qp_clip_frame": v for k, v in t_db.items()})
 
 
 def phase_rate_path(smi: str, golden: dict, bufs, names):
@@ -3610,7 +3984,7 @@ def phase_gop_dispatch(smi: str) -> tuple:
     reset_gop_state per GOP, the thread dispatcher, and the process
     dispatcher with 1, 2 and 4 workers on the one card, every AU list equal
     to the sequential one. Returns the whole-frame kernel's launches and the
-    packer, P-core and intra encode kernels' launches in the worker
+    packer, P-core, intra encode and meta kernels' launches in the worker
     processes."""
     import torch
 
@@ -3664,6 +4038,7 @@ def phase_gop_dispatch(smi: str) -> tuple:
           f"s) | {smi}")
 
     worker_packs = worker_cores = worker_iencs = worker_ikernels = 0
+    worker_metas = 0
     for k in DISPATCH_PROCS:
         aus, rep = dispatch_multiprocess(
             cfg_kwargs, frames, GOP_DISPATCH, n_procs=k,
@@ -3672,18 +4047,21 @@ def phase_gop_dispatch(smi: str) -> tuple:
                 or rep.pack_launches != n - GOPS_DISPATCH
                 or rep.core_launches != n - GOPS_DISPATCH
                 or rep.intra_launches != GOPS_DISPATCH
+                or rep.meta_launches != n
                 or rep.distributed != (k == 4)):
             raise AssertionError(
                 f"gop {k} processes: AUs equal {aus == seq}, "
                 f"{rep.kernel_launches} deblock, {rep.pack_launches} "
-                f"packer, {rep.core_launches} P-core and "
-                f"{rep.intra_launches} intra launches for {n} frames, "
+                f"packer, {rep.core_launches} P-core, {rep.meta_launches} "
+                f"meta and {rep.intra_launches} intra launches for {n} "
+                f"frames, "
                 f"process group {rep.distributed}")
         launches += rep.kernel_launches
         worker_packs += rep.pack_launches
         worker_cores += rep.core_launches
         worker_iencs += rep.intra_launches
         worker_ikernels += rep.intra_kernel_launches
+        worker_metas += rep.meta_launches
         per = {}
         for g in rep.gops:
             per[g.worker] = per.get(g.worker, 0.0) + g.compute_s
@@ -3697,7 +4075,7 @@ def phase_gop_dispatch(smi: str) -> tuple:
               f"{rep.prewarm_s:.3f}, wall with start-up {rep.wall_s:.2f} s "
               f"({mps}) | {smi}")
     return (launches, worker_packs, worker_cores, worker_iencs,
-            worker_ikernels)
+            worker_ikernels, worker_metas)
 
 
 def main() -> None:
@@ -3723,21 +4101,29 @@ def main() -> None:
     krec_pack = timed("kernel_pack", phase_kernel_pack, smi)
     krec_pcore = timed("kernel_pcore", phase_kernel_pcore, smi)
     krec_ienc, krec_irec = timed("kernel_intra", phase_kernel_intra, smi)
+    bufs, clip_sha = clip_i420()
+    if clip_sha != golden["clip_sha256"]:
+        raise AssertionError(f"input clip digest {clip_sha} != recorded "
+                             f"{golden['clip_sha256']} (numpy clip differs)")
+    krec_meta = timed("kernel_meta", phase_kernel_meta, smi, bufs)
     if "--kernels" in sys.argv[1:]:
         return
     from media_tpu_torch.entropy.device_cavlc import pack_pslice_device
+    from media_tpu_torch.pipeline.deblock_apply import deblock_meta
     from media_tpu_torch.pipeline.decoder_tpu import intra_recon
     from media_tpu_torch.pipeline.encoder import intra_encode
     from media_tpu_torch.pipeline.pframe_core import (
         local_pframe_core, search_refine_luma)
 
     # phase -> the launches in its run of the packer kernel, of the P-core
-    # kernel as the P core, of the P-core kernel as the search alone, and the
+    # kernel as the P core, of the P-core kernel as the search alone, of the
+    # deblocking meta kernel (one a deblocked picture or tile), and the
     # calls of the intra wavefront kernels (one a picture or tile) with the
     # kernels those calls enqueued (one a wave).
-    packs, cores, searches, iencs, irecs = {}, {}, {}, {}, {}
+    packs, cores, searches, iencs, irecs, metas = {}, {}, {}, {}, {}, {}
     ienc_kernels, irec_kernels = {}, {}
     wrappers = ((packs, pack_pslice_device, "launches"),
+                (metas, deblock_meta, "launches"),
                 (cores, local_pframe_core, "launches"),
                 (searches, search_refine_luma, "launches"),
                 (iencs, intra_encode, "launches"),
@@ -3748,7 +4134,8 @@ def main() -> None:
     def counted(name, phase, *args):
         """Run a phase with the launch counts set to 0 just before and read
         just after (its stage splits time the kernels through the uncounted
-        launch_pack_pslice, launch_pframe_core and launch_intra_encode)."""
+        launch_pack_pslice, launch_pframe_core, launch_deblock_meta and
+        launch_intra_encode)."""
         for _, wrapper, attr in wrappers:
             setattr(wrapper, attr, 0)
         out = timed(name, phase, *args)
@@ -3756,29 +4143,31 @@ def main() -> None:
             count[name] = count.get(name, 0) + getattr(wrapper, attr)
         return out
 
-    bufs, clip_sha = clip_i420()
-    if clip_sha != golden["clip_sha256"]:
-        raise AssertionError(f"input clip digest {clip_sha} != recorded "
-                             f"{golden['clip_sha256']} (numpy clip differs)")
     timed("native", phase_native, smi, bufs)
     (enc_launches, aus, recon_idr, recon_run, staged, recon_last, pack_rec,
-     core_rec) = counted("encode_path", phase_main_path, smi, golden, bufs)
+     core_rec, meta_rec) = counted("encode_path", phase_main_path, smi, golden,
+                                   bufs)
     dec_launches, step_launches, cq_dec, cq_frames = counted(
         "decode_path", phase_decode_path, smi, golden, aus, recon_idr,
         recon_run)
     rate_launches, keep = counted("rate_path", phase_rate_path, smi, golden,
                                   bufs, RATE_RUNS_PHASE7)
     sess, _run, got = keep["cbr_cabac_aq"]
-    t_per_mb, rate_pack_rec, rate_core_rec = timed(
+    t_per_mb, rate_pack_rec, rate_core_rec, rate_meta_rec = timed(
         "rate_stage_split", _rate_stage_split, sess, bufs[5],
         got["rc_final"]["qp"], smi)
     pack_rec.update(rate_pack_rec)
     core_rec.update(rate_core_rec)
+    meta_rec.update(rate_meta_rec)
     run = keep["cbr_cabac"][1]
     cabac_launches, _frames = counted(
         "cabac_decode_path", phase_cabac_decode, smi,
         golden["cbr_cabac"]["decoded_sha256"], run["aus"], run["recon_idr"],
         run["recon_run"])
+    # One whole staged P frame of the operating point, after its run.
+    meta_rec.update({f"profile_{k}_cbr_cabac": v for k, v in timed(
+        "profile", _profile_frame, keep["cbr_cabac"][0], bufs[1:4],
+        "CBR 8 Mbit/s + CABAC (the operating point)", smi).items()})
     del keep, sess, run, _frames
     i4_launches, keep = counted("i4x4_operating_point", phase_rate_path, smi,
                                 golden, bufs, (I4_RUN,))
@@ -3807,9 +4196,10 @@ def main() -> None:
     counted("hevc", phase_hevc, smi, golden)
     sharded_launches = counted("sharded", phase_sharded, smi, golden, bufs)
     (gop_launches, worker_packs, worker_cores, worker_iencs,
-     worker_ikernels) = counted(
+     worker_ikernels, worker_metas) = counted(
         "gop_dispatch", phase_gop_dispatch, smi)
     packs["gop_dispatch"] += worker_packs  # the spawned workers' launches
+    metas["gop_dispatch"] += worker_metas
     cores["gop_dispatch"] += worker_cores
     iencs["gop_dispatch"] += worker_iencs
     ienc_kernels["gop_dispatch"] += worker_ikernels
@@ -3838,6 +4228,16 @@ def main() -> None:
              if not irecs[k]]
     if idle:
         raise AssertionError(f"intra kernels never launched in {idle}")
+    # The phases that deblock pictures on the card: each picture's meta
+    # through the meta kernel (phase 19 only where libavcodec is there).
+    idle = [k for k in ("encode_path", "decode_path", "rate_path",
+                        "cabac_decode_path", "i4x4_operating_point",
+                        "multislice", "bgop", "api", "capi", "oracle_phase",
+                        "sharded", "gop_dispatch") if not metas[k]]
+    if avref_launches and not metas["avref"]:
+        idle.append("avref")
+    if idle:
+        raise AssertionError(f"meta kernel never launched in {idle}")
     print("[time] seconds by phase: " + ", ".join(
         f"{k} {v:.1f}" for k, v in seconds.items()))
     print("[kernel] pframe_core launches by phase: " + ", ".join(
@@ -3845,6 +4245,8 @@ def main() -> None:
         + ", ".join(f"{k} {v}" for k, v in searches.items()))
     print("[kernel] device_cavlc_pack launches by phase: " + ", ".join(
         f"{k} {v}" for k, v in packs.items()))
+    print("[kernel] deblock_meta launches by phase: " + ", ".join(
+        f"{k} {v}" for k, v in metas.items()))
     for what, calls, kernels in (("intra_encode", iencs, ienc_kernels),
                                  ("intra_recon", irecs, irec_kernels)):
         print(f"[kernel] {what} calls (kernel launches) by phase: "
@@ -3891,6 +4293,12 @@ def main() -> None:
          **{f"launches_{k}": v for k, v in cores.items()},
          **{f"search_launches_{k}": v for k, v in searches.items()},
          **krec_pcore, **core_rec},
+        {"name": "deblock_meta", "route": "cuda",
+         "source": "media_tpu_torch/csrc/deblock_meta.cu",
+         "replaces": "media_tpu/pipeline/deblock_apply.py:209 (XLA)",
+         "launches": sum(metas.values()),
+         **{f"launches_{k}": v for k, v in metas.items()},
+         **krec_meta, **meta_rec},
         *({"name": name, "route": "cuda",
            "source": "media_tpu_torch/csrc/intra_wave.cu",
            "replaces": replaces,

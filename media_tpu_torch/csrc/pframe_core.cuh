@@ -6,13 +6,18 @@
 // media_tpu_torch/pipeline/pframe_core.py:search_refine_luma_plain and
 // local_pframe_core_plain.
 //
+// The planes are uint8 (the encoder's and the tiles' P frames) or int32 (the
+// B core's search, and callers that hand int32 planes): Args and mb_pframe
+// are templates on the sample type, and only the loads differ.
+//
 // mb_pframe runs one MB on a block of `nt` threads, thread `tid` taking the
 // items tid, tid + nt, ... of every loop, with a barrier between the
 // stages; the host build runs it with nt = 1, where the barriers are empty
 // and the shared-memory minimum is a plain one. Stages:
 //   1. the current MB, its chroma, and the reference window of every sample
-//      the search and the 6-tap filters read, into shared memory (rows as
-//      given, columns clamped to the plane);
+//      the search and the 6-tap filters read, into shared memory (columns
+//      clamped to the plane; rows as given in an extended reference, clamped
+//      to the picture in a whole-picture one);
 //   2. the full-pel search: (2rs+1)^2 candidates, cost SAD + 4 (|dx|+|dy|),
 //      the first minimum in (dy, dx) raster order;
 //   3. the 18x18 windows around (mv - 1) of the full-pel samples g and the
@@ -64,11 +69,18 @@ constexpr int kQuarterShift = 6;  // quarter-pel key: cost << 6 | index
 // cur_y[r * cy_mb_row + c * cy_mb_col + i * cy_row + j]: a plane or an
 // (N, 16, 16) stack of MBs. Every other plane is (rows, width) with the
 // given row stride and unit column stride.
+template <typename Pix>
 struct Args {
-  const int32_t *cur_y, *cur_u, *cur_v;
+  const Pix *cur_y, *cur_u, *cur_v;
   int64_t cy_mb_row, cy_mb_col, cy_row, cu_row, cv_row;
-  const int32_t *ref_y, *ref_u, *ref_v;  // extended: rs + 4 and rs / 2 + 2
-  int64_t ry_row, ru_row, rv_row;        // rows above and below
+  // The reference: extended by rs + 4 (luma) and rs / 2 + 2 (chroma) rows
+  // above and below, read as given (a row tile's halo is its neighbours'
+  // rows); or, where `whole`, the picture alone (16 R and 8 R rows), its
+  // rows clamped to the picture, which is what the edge padding of the
+  // extended form holds.
+  const Pix *ref_y, *ref_u, *ref_v;
+  int64_t ry_row, ru_row, rv_row;
+  int whole;
   // QP: qp[mb * stride] where qp is not null, else the value.
   const int32_t *qp, *qp_c;
   int qp_stride, qp_c_stride, qp_value, qp_c_value;
@@ -85,16 +97,19 @@ struct Args {
 
 // The Args of the P core: the six planes' row strides in `strides` (cur_y,
 // cur_u, cur_v, ref_y, ref_u, ref_v).
-inline Args core_args(const int32_t* cur_y, const int32_t* cur_u,
-                      const int32_t* cur_v, const int32_t* ref_y,
-                      const int32_t* ref_u, const int32_t* ref_v,
-                      const int64_t* strides, const int32_t* qp,
-                      int qp_stride, int qp_value, const int32_t* qp_c,
-                      int qp_c_stride, int qp_c_value, const int32_t* mf,
-                      const int32_t* v, const int64_t* zz, int16_t* symbols,
-                      uint8_t* recon_y, uint8_t* recon_u, uint8_t* recon_v,
-                      int32_t* sad_total, int R, int C, int rs) {
-  Args a{};
+template <typename Pix>
+inline Args<Pix> core_args(const Pix* cur_y, const Pix* cur_u,
+                           const Pix* cur_v, const Pix* ref_y,
+                           const Pix* ref_u, const Pix* ref_v,
+                           const int64_t* strides, const int32_t* qp,
+                           int qp_stride, int qp_value, const int32_t* qp_c,
+                           int qp_c_stride, int qp_c_value, const int32_t* mf,
+                           const int32_t* v, const int64_t* zz,
+                           int16_t* symbols, uint8_t* recon_y,
+                           uint8_t* recon_u, uint8_t* recon_v,
+                           int32_t* sad_total, int R, int C, int rs,
+                           int whole) {
+  Args<Pix> a{};
   a.cur_y = cur_y, a.cur_u = cur_u, a.cur_v = cur_v;
   a.cy_mb_row = 16 * strides[0], a.cy_mb_col = 16, a.cy_row = strides[0];
   a.cu_row = strides[1], a.cv_row = strides[2];
@@ -106,18 +121,19 @@ inline Args core_args(const int32_t* cur_y, const int32_t* cur_u,
   a.symbols = symbols;
   a.recon_y = recon_y, a.recon_u = recon_u, a.recon_v = recon_v;
   a.sad_total = sad_total;
-  a.R = R, a.C = C, a.rs = rs;
+  a.R = R, a.C = C, a.rs = rs, a.whole = whole;
   return a;
 }
 
 // The Args of the search alone: (N, 16, 16) contiguous current MBs.
-inline Args search_args(const int32_t* cur, const int32_t* ref_y,
-                        int64_t ref_row, int32_t* qmv, int32_t* pred,
-                        int32_t* cost, int R, int C, int rs) {
-  Args a{};
+inline Args<int32_t> search_args(const int32_t* cur, const int32_t* ref_y,
+                                 int64_t ref_stride, int32_t* qmv,
+                                 int32_t* pred, int32_t* cost, int R, int C,
+                                 int rs) {
+  Args<int32_t> a{};
   a.cur_y = cur;
   a.cy_mb_row = 256 * (int64_t)C, a.cy_mb_col = 256, a.cy_row = 16;
-  a.ref_y = ref_y, a.ry_row = ref_row;
+  a.ref_y = ref_y, a.ry_row = ref_stride;
   a.qmv = qmv, a.pred = pred, a.cost = cost;
   a.R = R, a.C = C, a.rs = rs;
   return a;
@@ -304,26 +320,35 @@ MTPU_HD int qp_of(const int32_t* p, int stride, int value, int mb) {
   return p ? p[(int64_t)mb * stride] : value;
 }
 
+// The row of the reference plane that holds picture row `row` of a plane
+// of `rows` rows: `halo` rows down in an extended reference, the row
+// clamped to the picture in a whole one.
+MTPU_HD int64_t ref_row(int row, int halo, int rows, int whole) {
+  return whole ? clampi(row, 0, rows - 1) : row + halo;
+}
+
 // ---- one macroblock ---------------------------------------------------------
 
-MTPU_HD void mb_pframe(const Args& a, int mb, const Smem& s, int tid, int nt) {
+template <typename Pix>
+MTPU_HD void mb_pframe(const Args<Pix>& a, int mb, const Smem& s, int tid,
+                       int nt) {
   const int r = mb / a.C, c = mb % a.C, rs = a.rs;
   const int w = window_side(rs), o = rs + 3, K = 2 * rs + 1;
   const int width = 16 * a.C, width_c = 8 * a.C;
   const bool code = a.symbols != nullptr;
 
   // 1. Current MB, chroma, window, tables; the two minimum keys.
-  const int32_t* cy = a.cur_y + r * a.cy_mb_row + c * a.cy_mb_col;
+  const Pix* cy = a.cur_y + r * a.cy_mb_row + c * a.cy_mb_col;
   for (int p = tid; p < 256; p += nt)
     s.cur[p] = cy[(p >> 4) * a.cy_row + (p & 15)];
-  // Window row k is MB-relative row k - o, extended-plane row
-  // rs + kInterpHalo + 16 r + k - o (the plane has rs + kInterpHalo rows
-  // above picture row 0); rows are never clamped.
-  const int32_t* wrow0 =
-      a.ref_y + (int64_t)(rs + kInterpHalo + 16 * r - o) * a.ry_row;
+  // Window row k is picture row 16 r + k - o: in an extended reference
+  // plane row rs + kInterpHalo + 16 r + k - o, never clamped (a tile's halo
+  // rows are real rows); in a whole one clamped to the picture.
   for (int p = tid; p < w * w; p += nt) {
     const int k = p / w, x = 16 * c - o + p % w;
-    s.win[p] = wrow0[k * a.ry_row + clampi(x, 0, width - 1)];
+    s.win[p] = a.ref_y[ref_row(16 * r + k - o, rs + kInterpHalo, 16 * a.R,
+                               a.whole) * a.ry_row +
+                       clampi(x, 0, width - 1)];
   }
   if (code) {
     for (int p = tid; p < 128; p += nt) {
@@ -421,12 +446,15 @@ MTPU_HD void mb_pframe(const Args& a, int mb, const Smem& s, int tid, int nt) {
   const int ix = qx >> 3, iy = qy >> 3, fx = qx & 7, fy = qy & 7;
   for (int p = tid; p < 128; p += nt) {
     const int comp = p >> 6, i = (p >> 3) & 7, j = p & 7;
-    const int32_t* ref = comp ? a.ref_v : a.ref_u;
+    const Pix* ref = comp ? a.ref_v : a.ref_u;
     const int64_t row = comp ? a.rv_row : a.ru_row;
-    const int32_t* r0 = ref + (int64_t)(halo_c + 8 * r + iy + i) * row;
+    const Pix* r0 =
+        ref + ref_row(8 * r + iy + i, halo_c, 8 * a.R, a.whole) * row;
+    const Pix* r1 =
+        ref + ref_row(8 * r + iy + i + 1, halo_c, 8 * a.R, a.whole) * row;
     const int x0 = clampi(8 * c + ix + j, 0, width_c - 1);
     const int x1 = clampi(8 * c + ix + j + 1, 0, width_c - 1);
-    const int A = r0[x0], B = r0[x1], Cc = r0[row + x0], D = r0[row + x1];
+    const int A = r0[x0], B = r0[x1], Cc = r1[x0], D = r1[x1];
     s.predc[p] = ((8 - fx) * (8 - fy) * A + fx * (8 - fy) * B +
                   (8 - fx) * fy * Cc + fx * fy * D + 32) >> 6;
   }

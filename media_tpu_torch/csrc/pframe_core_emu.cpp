@@ -15,7 +15,8 @@ using namespace media_pcore;
 
 namespace {
 
-int run(const Args& a) {
+template <typename Pix>
+int run(const Args<Pix>& a) {
   if (a.R <= 0 || a.C <= 0 || a.rs < 0 || a.rs > kMaxRange) return -1;
   if (a.sad_total) *a.sad_total = 0;
   std::vector<int> smem(Smem::ints(a.rs));
@@ -37,7 +38,21 @@ extern "C" int pframe_core_launch(
   return run(core_args(cur_y, cur_u, cur_v, ref_y, ref_u, ref_v, strides, qp,
                        qp_stride, qp_value, qp_c, qp_c_stride, qp_c_value, mf,
                        v, zz, symbols, recon_y, recon_u, recon_v, sad_total, R,
-                       C, rs));
+                       C, rs, 0));
+}
+
+extern "C" int pframe_core_u8_launch(
+    const uint8_t* cur_y, const uint8_t* cur_u, const uint8_t* cur_v,
+    const uint8_t* ref_y, const uint8_t* ref_u, const uint8_t* ref_v,
+    const int64_t* strides, const int32_t* qp, int qp_stride, int qp_value,
+    const int32_t* qp_c, int qp_c_stride, int qp_c_value, const int32_t* mf,
+    const int32_t* v, const int64_t* zz, int16_t* symbols, uint8_t* recon_y,
+    uint8_t* recon_u, uint8_t* recon_v, int32_t* sad_total, int R, int C,
+    int rs, int whole, void*) {
+  return run(core_args(cur_y, cur_u, cur_v, ref_y, ref_u, ref_v, strides, qp,
+                       qp_stride, qp_value, qp_c, qp_c_stride, qp_c_value, mf,
+                       v, zz, symbols, recon_y, recon_u, recon_v, sad_total, R,
+                       C, rs, whole));
 }
 
 extern "C" int pframe_search_launch(const int32_t* cur, const int32_t* ref_y,

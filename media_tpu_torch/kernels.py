@@ -94,7 +94,19 @@ def load() -> ctypes.CDLL:
     lib.deblock_wave_step_inplace_launch.restype = ci
     lib.media_cuda_error_string.argtypes = [ci]
     lib.media_cuda_error_string.restype = ctypes.c_char_p
-    return bind_intra_wave(bind_pframe_core(bind_device_cavlc(lib)))
+    return bind_deblock_meta(
+        bind_intra_wave(bind_pframe_core(bind_device_cavlc(lib))))
+
+
+def bind_deblock_meta(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """The C signature of the deblocking meta kernel's entry point
+    (csrc/deblock_meta.cu; its host build for the tests,
+    csrc/deblock_meta_emu.cpp, has the same)."""
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.deblock_meta_launch.argtypes = (
+        [vp, vp, ci, vp, ci] + [vp] * 4 + [ci] * 3 + [vp])
+    lib.deblock_meta_launch.restype = ci
+    return lib
 
 
 def bind_intra_wave(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -119,6 +131,9 @@ def bind_pframe_core(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.pframe_core_launch.argtypes = (
         [vp] * 7 + [vp, ci, ci, vp, ci, ci] + [vp] * 8 + [ci, ci, ci, vp])
     lib.pframe_core_launch.restype = ci
+    lib.pframe_core_u8_launch.argtypes = (
+        [vp] * 7 + [vp, ci, ci, vp, ci, ci] + [vp] * 8 + [ci] * 4 + [vp])
+    lib.pframe_core_u8_launch.restype = ci
     lib.pframe_search_launch.argtypes = (
         [vp, vp, ctypes.c_longlong] + [vp] * 3 + [ci, ci, ci, vp])
     lib.pframe_search_launch.restype = ci

@@ -66,6 +66,9 @@ class MpDispatchReport:
     # and .kernel_launches; 0 on the CPU).
     intra_launches: int = 0
     intra_kernel_launches: int = 0
+    # Deblocking meta kernel launches of the same GOPs, one a picture
+    # (pipeline/deblock_apply.py:deblock_meta.launches; 0 on the CPU).
+    meta_launches: int = 0
 
     @property
     def compute_s_total(self) -> float:
@@ -137,6 +140,7 @@ def _worker_main(widx: int, n_procs: int, coord: str | None,
     from ..entropy.device_cavlc import pack_pslice_device
     from ..ops.deblock_wave import deblock_wave
     from ..pipeline.codec import EncoderConfig, EncoderSession
+    from ..pipeline.deblock_apply import deblock_meta
     from ..pipeline.encoder import intra_encode
     from ..pipeline.pframe_core import local_pframe_core
     from ..utils import yuv
@@ -158,7 +162,7 @@ def _worker_main(widx: int, n_procs: int, coord: str | None,
     # Measured GOPs only.
     deblock_wave.launches = pack_pslice_device.launches = 0
     local_pframe_core.launches = intra_encode.launches = 0
-    intra_encode.kernel_launches = 0
+    intra_encode.kernel_launches = deblock_meta.launches = 0
     result_queue.put(("ready", widx, distributed))
     while True:
         item = gop_queue.get()
@@ -174,7 +178,8 @@ def _worker_main(widx: int, n_procs: int, coord: str | None,
         dist.destroy_process_group()
     result_queue.put(("done", widx, deblock_wave.launches,
                       pack_pslice_device.launches, local_pframe_core.launches,
-                      intra_encode.launches, intra_encode.kernel_launches))
+                      intra_encode.launches, intra_encode.kernel_launches,
+                      deblock_meta.launches))
 
 
 def dispatch_multiprocess(cfg_kwargs: dict, frames: list, gop_size: int,
@@ -234,7 +239,7 @@ def dispatch_multiprocess(cfg_kwargs: dict, frames: list, gop_size: int,
     results: dict[int, list] = {}
     stats: list[MpGopStats] = []
     distributed = False
-    launches = packs = cores = intras = intra_kernels = 0
+    launches = packs = cores = intras = intra_kernels = metas = 0
     ready = done = 0
     try:
         # Wait for EVERY worker's ready (post-warmup) before enqueueing any
@@ -265,6 +270,7 @@ def dispatch_multiprocess(cfg_kwargs: dict, frames: list, gop_size: int,
                 cores += msg[4]
                 intras += msg[5]
                 intra_kernels += msg[6]
+                metas += msg[7]
             elif msg[0] == "log":
                 pass
         for p in procs:
@@ -288,5 +294,6 @@ def dispatch_multiprocess(cfg_kwargs: dict, frames: list, gop_size: int,
                               gops=sorted(stats, key=lambda s: s.gop_index),
                               kernel_launches=launches, pack_launches=packs,
                               core_launches=cores, intra_launches=intras,
-                              intra_kernel_launches=intra_kernels)
+                              intra_kernel_launches=intra_kernels,
+                              meta_launches=metas)
     return out, report

@@ -180,16 +180,16 @@ def _halo_exchange_rows(tiles, halo: int) -> list:
 def _pframe_cores(cur, ref, qps, search_range: int, rows_local: int,
                   n_cols: int) -> list:
     """local_pframe_core on every tile. cur, ref: (y, u, v) triples of row
-    tiles; qps: per tile its (qp, qp_c), Python ints or tensors on the
-    tile's device. The reference tiles get their halo rows first."""
+    tiles (uint8, which the kernel reads as they are); qps: per tile its
+    (qp, qp_c), Python ints or tensors on the tile's device. The reference
+    tiles get their halo rows first: real rows, which the kernel reads as
+    given."""
     halo_y = search_range + INTERP_HALO
     halo_c = search_range // 2 + 2
     ext = [_halo_exchange_rows(tiles, h)
            for tiles, h in zip(ref, (halo_y, halo_c, halo_c))]
-    i32 = torch.int32
-    return [local_pframe_core(*(p[t].to(i32) for p in cur),
-                              *(e[t].to(i32) for e in ext), *qps[t],
-                              search_range, rows_local, n_cols)
+    return [local_pframe_core(*(p[t] for p in cur), *(e[t] for e in ext),
+                              *qps[t], search_range, rows_local, n_cols)
             for t in range(len(qps))]
 
 

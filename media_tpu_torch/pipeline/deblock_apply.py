@@ -10,11 +10,18 @@ kernel="wave", one in-place wave step of ops/deblock_pallas.py per wave
 MEDIA_TPU_DEBLOCK_KERNEL=pallas; the gathers and scatters of that route
 happen inside the kernel here). Either way a CUDA tensor goes through the
 CUDA kernel and a CPU tensor through its plain version.
+
+The meta of a P picture (from its symbols) or an I picture comes from
+`deblock_meta`: on CUDA tensors the hand-written kernel csrc/deblock_meta.cu,
+on CPU tensors its plain version, build_meta over pframe_bs_grids or
+intra_bs_grids.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
+import threading
 
 import numpy as np
 import torch
@@ -22,7 +29,8 @@ import torch
 from ..ops import deblock as db
 from ..ops.deblock_wave import deblock_wave, run_waves
 from ..ops.transform import CHROMA_QP_TABLE
-from .pframe_core import unpack_symbols_device
+from .pframe_core import (
+    SYMBOLS_PER_MB, _kernel_qp, _ptr, unpack_symbols_device)
 
 
 @functools.lru_cache(maxsize=None)
@@ -104,6 +112,25 @@ def build_meta(qp, qp_c, bs_v, bs_h, R: int, C: int, qp_map=None):
     return meta
 
 
+def _check_route(kernel: str, qp_map) -> None:
+    if kernel not in ("frame", "wave"):
+        raise ValueError(f"deblock kernel {kernel!r} (expected 'frame' or "
+                         "'wave')")
+    if kernel == "wave" and qp_map is not None:
+        raise NotImplementedError("per-MB QP deblocking requires "
+                                  "kernel='frame'")
+
+
+def _filter(y, u, v, meta, R: int, C: int, kernel: str):
+    """Filter copies of the planes, as uint8, by the route `kernel`."""
+    y, u, v = (p.to(torch.uint8, copy=True).contiguous() for p in (y, u, v))
+    if kernel == "wave":
+        run_waves(y, u, v, meta, R, C)
+    else:
+        deblock_wave(y, u, v, meta, R, C)
+    return y, u, v
+
+
 def deblock_frame(y, u, v, qp, qp_c, bs_v, bs_h, R: int, C: int,
                   qp_map=None, kernel: str = "frame"):
     """Deblock one frame; returns filtered uint8 (y, u, v).
@@ -117,19 +144,9 @@ def deblock_frame(y, u, v, qp, qp_c, bs_v, bs_h, R: int, C: int,
     version. Every filter output stays in 0..255, so filtering uint8 planes
     is exact.
     """
-    if kernel not in ("frame", "wave"):
-        raise ValueError(f"deblock kernel {kernel!r} (expected 'frame' or "
-                         "'wave')")
-    if kernel == "wave" and qp_map is not None:
-        raise NotImplementedError("per-MB QP deblocking requires "
-                                  "kernel='frame'")
+    _check_route(kernel, qp_map)
     meta = build_meta(qp, qp_c, bs_v, bs_h, R, C, qp_map=qp_map)
-    y, u, v = (p.to(torch.uint8, copy=True).contiguous() for p in (y, u, v))
-    if kernel == "wave":
-        run_waves(y, u, v, meta, R, C)
-    else:
-        deblock_wave(y, u, v, meta, R, C)
-    return y, u, v
+    return _filter(y, u, v, meta, R, C, kernel)
 
 
 def _zero_slice_boundaries(bs_h, slice_starts):
@@ -153,6 +170,118 @@ def pframe_bs_grids(symbols, R: int, C: int, slice_starts: tuple = ()):
     return bs_v, _zero_slice_boundaries(bs_h, slice_starts)
 
 
+# ---- the meta as one CUDA kernel -------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def _meta_table(device: torch.device):
+    """(52, 6) int32: build_meta's (alpha, beta, tc0 for bS 1, 2, 3) of each
+    QP and its chroma QP, the table csrc/deblock_meta.cuh reads."""
+    tbl, cqp = _qp_tables(device)
+    return torch.cat([tbl, cqp.to(torch.int32)[:, None]], dim=1).contiguous()
+
+
+@functools.lru_cache(maxsize=None)
+def _slice_rows(slice_starts: tuple, R: int, device: torch.device):
+    """(R,) uint8, 1 at each interior slice-start MB row; None without one."""
+    rows = [r for r in slice_starts if 0 < r < R]
+    if not rows:
+        return None
+    flags = np.zeros(R, dtype=np.uint8)
+    flags[rows] = 1
+    return torch.as_tensor(flags, device=device)
+
+
+def _meta_device(symbols, device) -> torch.device:
+    return symbols.device if symbols is not None else torch.device(device)
+
+
+def deblock_meta_plain(symbols, qp, qp_c, R: int, C: int,
+                       slice_starts: tuple = (), qp_map=None,
+                       intra: bool = False, device=None):
+    """The meta of a P picture (from its (R, C, 386) symbol tensor) or, with
+    `intra`, an I picture (symbols unused; `device` names its device), in
+    plain PyTorch: deblock_meta's CPU path and the kernel's spec."""
+    if intra:
+        bs_v, bs_h = db.intra_bs_grids(R, C,
+                                       device=_meta_device(symbols, device))
+        bs_h = _zero_slice_boundaries(bs_h, slice_starts)
+    else:
+        bs_v, bs_h = pframe_bs_grids(symbols, R, C, slice_starts)
+    return build_meta(qp, qp_c, bs_v, bs_h, R, C, qp_map=qp_map)
+
+
+def launch_deblock_meta(symbols, qp, qp_c, R: int, C: int,
+                        slice_starts: tuple = (), qp_map=None,
+                        intra: bool = False, device=None):
+    """Launch the meta kernel (csrc/deblock_meta.cu) on the current stream of
+    the tensors' device, with that device current: no count. Returns the
+    (R*C, META_COLS) int32 meta in a fresh tensor; reads nothing back from
+    the device (a device QP is read by the kernel)."""
+    from .. import kernels
+
+    R, C = int(R), int(C)
+    dev = _meta_device(symbols, device)
+    if intra:
+        symbols = None
+    else:
+        if (symbols.dtype != torch.int16
+                or tuple(symbols.shape) != (R, C, SYMBOLS_PER_MB)):
+            raise ValueError(f"symbols: expected int16 "
+                             f"{(R, C, SYMBOLS_PER_MB)}, got {symbols.dtype} "
+                             f"{tuple(symbols.shape)}")
+        symbols = symbols.contiguous()
+    # Each QP by value or read by the kernel (_kernel_qp's forms): a uniform
+    # one (qp[0]), or the per-MB map in place of both.
+    if qp_map is None:
+        q, _, q_value = _kernel_qp(qp, 1, dev, "qp")
+        qc, _, qc_value = _kernel_qp(qp_c, 1, dev, "qp_c")
+        qmap = None
+    else:
+        q = qc = None
+        q_value = qc_value = 0
+        qmap = _kernel_qp(torch.as_tensor(qp_map), R * C, dev, "qp_map")[0]
+    meta = torch.empty((R * C, db.META_COLS), dtype=torch.int32, device=dev)
+    lib = kernels.load()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.deblock_meta_launch(
+            _ptr(symbols), _ptr(q), q_value, _ptr(qc), qc_value, _ptr(qmap),
+            _ptr(_slice_rows(tuple(slice_starts), R, dev)),
+            _ptr(_meta_table(dev)), _ptr(meta), R, C, int(bool(intra)),
+            ctypes.c_void_p(stream))
+    if err:
+        raise RuntimeError(f"deblock_meta kernel launch failed: "
+                           f"{kernels.error_string(err)}")
+    return meta
+
+
+def deblock_meta(symbols, qp, qp_c, R: int, C: int, slice_starts: tuple = (),
+                 qp_map=None, intra: bool = False, device=None):
+    """The (R*C, META_COLS) int32 deblocking meta of a P picture, from its
+    (R, C, 386) int16 symbol tensor, or with `intra` of an I picture
+    (symbols may be None; `device` then names the device). qp/qp_c: Python
+    ints or 0-d tensors (the rate loop's QP, read on the device); qp_map:
+    optional (R, C) per-MB luma QP (see build_meta); slice_starts: MB rows
+    whose top edges are not filtered (disable_deblocking_filter_idc 2). On
+    CPU tensors it runs deblock_meta_plain; on CUDA tensors it launches the
+    kernel on the current stream and counts the call in
+    `deblock_meta.launches`."""
+    dev = _meta_device(symbols, device)
+    if dev.type == "cpu":
+        return deblock_meta_plain(symbols, qp, qp_c, R, C, slice_starts,
+                                  qp_map, intra, dev)
+    meta = launch_deblock_meta(symbols, qp, qp_c, R, C, slice_starts, qp_map,
+                               intra, dev)
+    with _COUNT_LOCK:  # sessions in several threads call it
+        deblock_meta.launches += 1
+    return meta
+
+
+deblock_meta.launches = 0
+_COUNT_LOCK = threading.Lock()
+
+
 def deblock_pframe_from_symbols(recon_y, recon_u, recon_v, symbols, qp,
                                 qp_c, R: int, C: int,
                                 slice_starts: tuple = (), qp_map=None,
@@ -160,14 +289,14 @@ def deblock_pframe_from_symbols(recon_y, recon_u, recon_v, symbols, qp,
     """Inter deblocking given the packed symbol tensor (on the device).
     qp/qp_c: Python ints or 0-d tensors (the rate loop's QP of this frame);
     qp_map: optional (R, C) per-MB QP as the decoder sees it."""
-    bs_v, bs_h = pframe_bs_grids(symbols, R, C, slice_starts)
-    return deblock_frame(recon_y, recon_u, recon_v, qp, qp_c, bs_v, bs_h,
-                         R, C, qp_map=qp_map, kernel=kernel)
+    _check_route(kernel, qp_map)
+    meta = deblock_meta(symbols, qp, qp_c, R, C, slice_starts, qp_map)
+    return _filter(recon_y, recon_u, recon_v, meta, R, C, kernel)
 
 
 def deblock_iframe(recon_y, recon_u, recon_v, qp: int, qp_c: int, R: int,
                    C: int, slice_starts: tuple = (), kernel: str = "frame"):
-    bs_v, bs_h = db.intra_bs_grids(R, C, device=recon_y.device)
-    bs_h = _zero_slice_boundaries(bs_h, slice_starts)
-    return deblock_frame(recon_y, recon_u, recon_v, qp, qp_c, bs_v, bs_h, R, C,
-                         kernel=kernel)
+    _check_route(kernel, None)
+    meta = deblock_meta(None, qp, qp_c, R, C, slice_starts, intra=True,
+                        device=recon_y.device)
+    return _filter(recon_y, recon_u, recon_v, meta, R, C, kernel)

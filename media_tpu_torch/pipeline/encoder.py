@@ -27,7 +27,7 @@ from .deblock_apply import deblock_iframe, deblock_pframe_from_symbols
 from .intra_wave import kernel_launches, launch_intra_encode
 from .pframe_core import (
     INTERP_HALO, _blocks8_mb, _blocks_mb, _mb_blocks, _mb_blocks8,
-    chroma_qp_device, local_bframe_core, local_pframe_core, unpack_b_symbols,
+    chroma_qp_device, local_bframe_core, pframe_core_whole, unpack_b_symbols,
     unpack_symbols, unpack_symbols_device)
 
 # z-scan order of 4x4 luma blocks within an MB -> raster index (by*4+bx)
@@ -397,11 +397,11 @@ class FrameEncoder:
     # ------------------------------------------------------------------ inter
 
     def _pframe_core(self, ref, frame, qp, qp_c, rs: int):
-        """local_pframe_core of one P frame against the uint8 reference
-        planes `ref`, before deblocking."""
-        y, u, v = (p.to(torch.int32) for p in frame)
-        return local_pframe_core(y, u, v, *self._ref_ext(ref, rs), qp, qp_c,
-                                 rs, self.n_rows, self.n_cols)
+        """The P core of one P frame against the uint8 reference planes
+        `ref`, before deblocking: on the card the kernel reads the planes
+        as they are, with no halo (pframe_core_whole)."""
+        return pframe_core_whole(*frame, *ref, qp, qp_c, rs, self.n_rows,
+                                 self.n_cols)
 
     def _pframe_step(self, ref, frame, qp: int, qp_c: int, rs: int,
                      deblock: bool):
@@ -441,11 +441,11 @@ class FrameEncoder:
             int(T.chroma_qp(qp)), search_range))
 
     def _ref_ext(self, ref, rs: int):
-        """A reference's planes as int32, extended above and below by the
-        halos the inter cores read."""
+        """A reference's planes, in their own dtype, extended above and
+        below by the halos the B core reads."""
         halo_y = rs + INTERP_HALO
         halo_c = rs // 2 + 2
-        ry, ru, rv = (p.to(torch.int32) for p in ref)
+        ry, ru, rv = ref
         return (edge_pad(ry, halo_y, halo_y, 0, 0),
                 edge_pad(ru, halo_c, halo_c, 0, 0),
                 edge_pad(rv, halo_c, halo_c, 0, 0))

@@ -16,10 +16,12 @@ Where the JAX package extracts per-MB windows with one-hot bf16 matmuls (an
 element gather serialises on a TPU), this port indexes the padded plane
 directly: the windows are the same samples.
 
-local_pframe_core and search_refine_luma run their plain versions
-(local_pframe_core_plain, search_refine_luma_plain: some 770 eager
-launches a 1080p frame) on CPU tensors and launch the hand-written kernel
-csrc/pframe_core.cu on CUDA tensors.
+local_pframe_core, pframe_core_whole and search_refine_luma run their
+plain versions (local_pframe_core_plain, search_refine_luma_plain: some 770
+eager launches a 1080p frame) on CPU tensors and launch the hand-written
+kernel csrc/pframe_core.cu on CUDA tensors; on uint8 planes the kernel
+reads them as they are, and pframe_core_whole hands it the reference
+without a halo, whose rows it clamps.
 """
 
 from __future__ import annotations
@@ -316,14 +318,14 @@ def local_pframe_core_plain(cur_y, cur_u, cur_v, ref_y_ext, ref_u_ext,
 MAX_KERNEL_RANGE = 32  # csrc/pframe_core.cuh kMaxRange: its shared layout
 
 
-def _kernel_plane(x, shape, dev, what: str):
-    """x as the kernel reads a plane: int32 on `dev`, unit column stride."""
+def _kernel_plane(x, shape, dev, what: str, dtype=torch.int32):
+    """x as the kernel reads a plane: `dtype` on `dev`, unit column stride."""
     if tuple(x.shape) != tuple(shape):
         raise ValueError(f"{what} of shape {tuple(x.shape)}, expected "
                          f"{tuple(shape)}")
     if x.device != dev:
         raise ValueError(f"{what} on {x.device}, the current plane on {dev}")
-    x = x.to(torch.int32)
+    x = x.to(dtype)
     return x if x.stride(-1) == 1 else x.contiguous()
 
 
@@ -353,23 +355,32 @@ def _ptr(t):
 
 def launch_pframe_core(cur_y, cur_u, cur_v, ref_y_ext, ref_u_ext, ref_v_ext,
                        qp, qp_c, search_range: int, n_rows: int,
-                       n_cols: int):
+                       n_cols: int, whole: bool = False):
     """Launch the P-core kernel (csrc/pframe_core.cu) on the current stream
     of the tensors' device, with that device current: no count. Returns what
     local_pframe_core_plain returns, in fresh tensors; reads nothing back
-    from the device (a device QP is read by the kernel)."""
+    from the device (a device QP is read by the kernel). Six uint8 planes
+    are read as they are, any other six as int32 copies. whole: the
+    reference planes are the picture alone (uint8 only), whose rows the
+    kernel clamps to the picture, as edge padding would extend them."""
     from .. import kernels
 
     R, C, rs = int(n_rows), int(n_cols), int(search_range)
     _check_range(rs)
     dev = cur_y.device
-    hy, hc = rs + INTERP_HALO, rs // 2 + 2
-    planes = [_kernel_plane(x, shape, dev, what) for x, shape, what in (
-        (cur_y, (16 * R, 16 * C), "cur_y"), (cur_u, (8 * R, 8 * C), "cur_u"),
-        (cur_v, (8 * R, 8 * C), "cur_v"),
-        (ref_y_ext, (16 * R + 2 * hy, 16 * C), "ref_y_ext"),
-        (ref_u_ext, (8 * R + 2 * hc, 8 * C), "ref_u_ext"),
-        (ref_v_ext, (8 * R + 2 * hc, 8 * C), "ref_v_ext"))]
+    hy, hc = (0, 0) if whole else (rs + INTERP_HALO, rs // 2 + 2)
+    given = (cur_y, cur_u, cur_v, ref_y_ext, ref_u_ext, ref_v_ext)
+    u8 = all(x.dtype == torch.uint8 for x in given)
+    if whole and not u8:
+        raise ValueError("a whole-picture reference takes six uint8 planes")
+    dtype = torch.uint8 if u8 else torch.int32
+    planes = [_kernel_plane(x, shape, dev, what, dtype)
+              for x, shape, what in zip(given, (
+                  (16 * R, 16 * C), (8 * R, 8 * C), (8 * R, 8 * C),
+                  (16 * R + 2 * hy, 16 * C), (8 * R + 2 * hc, 8 * C),
+                  (8 * R + 2 * hc, 8 * C)), (
+                  "cur_y", "cur_u", "cur_v", "ref_y_ext", "ref_u_ext",
+                  "ref_v_ext"))]
     q, q_stride, q_value = _kernel_qp(qp, R * C, dev, "qp")
     qc, qc_stride, qc_value = _kernel_qp(qp_c, R * C, dev, "qp_c")
     tb = T._tables(dev)
@@ -386,13 +397,18 @@ def launch_pframe_core(cur_y, cur_u, cur_v, ref_y_ext, ref_u_ext, ref_v_ext,
     lib = kernels.load()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.pframe_core_launch(
-            *(_ptr(p) for p in planes), ctypes.cast(strides, ctypes.c_void_p),
-            _ptr(q), q_stride, q_value, _ptr(qc), qc_stride, qc_value,
-            _ptr(tb["mf"]), _ptr(tb["v"]), _ptr(tb["zz"]),
-            *(_ptr(out[k]) for k in ("symbols", "recon_y", "recon_u",
-                                     "recon_v", "sad_total")),
-            R, C, rs, ctypes.c_void_p(stream))
+        args = (*(_ptr(p) for p in planes),
+                ctypes.cast(strides, ctypes.c_void_p), _ptr(q), q_stride,
+                q_value, _ptr(qc), qc_stride, qc_value, _ptr(tb["mf"]),
+                _ptr(tb["v"]), _ptr(tb["zz"]),
+                *(_ptr(out[k]) for k in ("symbols", "recon_y", "recon_u",
+                                         "recon_v", "sad_total")),
+                R, C, rs)
+        if u8:
+            err = lib.pframe_core_u8_launch(*args, int(whole),
+                                            ctypes.c_void_p(stream))
+        else:
+            err = lib.pframe_core_launch(*args, ctypes.c_void_p(stream))
     if err:
         raise RuntimeError(f"pframe_core kernel launch failed: "
                            f"{kernels.error_string(err)}")
@@ -438,7 +454,8 @@ def search_refine_luma(cur, ref_y_ext, search_range: int, R: int, C: int):
     version; on CUDA tensors it launches the kernel on the current stream
     and counts the call in `search_refine_luma.launches`."""
     if cur.device.type == "cpu":
-        return search_refine_luma_plain(cur, ref_y_ext, search_range, R, C)
+        return search_refine_luma_plain(cur, ref_y_ext.to(torch.int32),
+                                        search_range, R, C)
     out = launch_search_refine_luma(cur, ref_y_ext, search_range, R, C)
     with _COUNT_LOCK:  # sessions in several threads call it
         search_refine_luma.launches += 1
@@ -456,13 +473,54 @@ def local_pframe_core(cur_y, cur_u, cur_v, ref_y_ext, ref_u_ext, ref_v_ext,
     has `search_range + INTERP_HALO` extra rows above/below, ref_[uv]_ext
     `search_range // 2 + 2`; their rows are read as given (a row tile's
     halo is its neighbour's rows). On CPU tensors it runs the plain
-    version; on CUDA tensors it launches the kernel on the current stream
-    and counts the call in `local_pframe_core.launches`."""
-    args = (cur_y, cur_u, cur_v, ref_y_ext, ref_u_ext, ref_v_ext, qp, qp_c,
-            search_range, n_rows, n_cols)
+    version on int32 copies; on CUDA tensors it launches the kernel on the
+    current stream (on uint8 planes as they are) and counts the call in
+    `local_pframe_core.launches`."""
+    planes = (cur_y, cur_u, cur_v, ref_y_ext, ref_u_ext, ref_v_ext)
+    args = (qp, qp_c, search_range, n_rows, n_cols)
     if cur_y.device.type == "cpu":
-        return local_pframe_core_plain(*args)
-    out = launch_pframe_core(*args)
+        return local_pframe_core_plain(
+            *(p.to(torch.int32) for p in planes), *args)
+    out = launch_pframe_core(*planes, *args)
+    with _COUNT_LOCK:
+        local_pframe_core.launches += 1
+    return out
+
+
+def _whole_to_ext(planes, rs: int):
+    """The six planes of a whole-picture call as int32 copies, the
+    reference extended by edge padding: local_pframe_core's inputs."""
+    hy, hc = rs + INTERP_HALO, rs // 2 + 2
+    y, u, v, ry, ru, rv = (p.to(torch.int32) for p in planes)
+    return (y, u, v, edge_pad(ry, hy, hy, 0, 0), edge_pad(ru, hc, hc, 0, 0),
+            edge_pad(rv, hc, hc, 0, 0))
+
+
+def pframe_core_whole_plain(cur_y, cur_u, cur_v, ref_y, ref_u, ref_v, qp,
+                            qp_c, search_range: int, n_rows: int,
+                            n_cols: int):
+    """pframe_core_whole in plain PyTorch (its CPU path and the spec of the
+    kernel's whole-picture entry)."""
+    planes = (cur_y, cur_u, cur_v, ref_y, ref_u, ref_v)
+    return local_pframe_core_plain(*_whole_to_ext(planes, search_range), qp,
+                                   qp_c, search_range, n_rows, n_cols)
+
+
+def pframe_core_whole(cur_y, cur_u, cur_v, ref_y, ref_u, ref_v, qp, qp_c,
+                      search_range: int, n_rows: int, n_cols: int):
+    """local_pframe_core against a reference that is the whole picture
+    (16R, 16C) and (8R, 8C), with no halo rows: the encoder's P frame. On
+    CPU tensors it runs pframe_core_whole_plain; on CUDA tensors it launches
+    the kernel on the six uint8 planes as they are, the reference's rows
+    clamped to the picture (other dtypes go as int32 copies with padded
+    halos), and counts the call in `local_pframe_core.launches`."""
+    planes = (cur_y, cur_u, cur_v, ref_y, ref_u, ref_v)
+    args = (qp, qp_c, search_range, n_rows, n_cols)
+    if cur_y.device.type == "cpu":
+        return pframe_core_whole_plain(*planes, *args)
+    if any(p.dtype != torch.uint8 for p in planes):
+        return local_pframe_core(*_whole_to_ext(planes, search_range), *args)
+    out = launch_pframe_core(*planes, *args, whole=True)
     with _COUNT_LOCK:
         local_pframe_core.launches += 1
     return out

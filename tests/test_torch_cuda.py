@@ -913,3 +913,86 @@ def test_intra_kernels_in_two_threads(cuda_device):
     for t in threads:
         t.join()
     assert errors == []
+
+
+# ----------------------------- the P core's uint8 entry and its row clamp
+
+
+@pytest.mark.parametrize("R,C", [(1, 1), (1, 5), (5, 1), (6, 9), (68, 120)])
+def test_pframe_core_whole_picture_uint8_matches_plain(cuda_device, R, C):
+    """pframe_core_whole on the encoder's uint8 planes, the reference with
+    no halo rows (the kernel clamps them), equals the plain version on the
+    int32 edge-padded planes, every run of chip_smoke.pcore_runs."""
+    from chip_smoke import pcore_runs, pcore_whole_u8
+    from media_tpu_torch.pipeline import pframe_core as pc
+
+    before = pc.local_pframe_core.launches
+    runs = pcore_runs(R, C, cuda_device)
+    for label, planes, rs, qp, qp_c in runs:
+        got = pc.pframe_core_whole(*pcore_whole_u8(planes, rs), qp, qp_c, rs,
+                                   R, C)
+        want = pc.local_pframe_core_plain(*planes, qp, qp_c, rs, R, C)
+        for k, v in want.items():
+            assert got[k].dtype == v.dtype, (label, k)
+            assert torch.equal(got[k], v), (label, k)
+    assert pc.local_pframe_core.launches == before + len(runs)
+
+
+def test_pframe_core_uint8_row_tile_reads_its_halo_rows(cuda_device):
+    """The 17-row tiles of a 1080p picture cut in four, as uint8 with their
+    neighbours' rows as halos (parallel/sharding.py): read as given."""
+    from chip_smoke import pcore_planes
+    from media_tpu_torch.pipeline import pframe_core as pc
+
+    R, C = 17, 120
+    for rs, tile in ((8, 0), (8, 1), (4, 3)):
+        planes = [p.to(cuda_device) for p in pcore_planes(
+            R, C, rs, tile, "moving", tiles=4, tile=tile)]
+        got = pc.local_pframe_core(*(p.to(torch.uint8) for p in planes), 31,
+                                   30, rs, R, C)
+        want = pc.local_pframe_core_plain(*planes, 31, 30, rs, R, C)
+        for k, v in want.items():
+            assert torch.equal(got[k], v), (rs, tile, k)
+
+
+# ------------------------------------------------ the deblocking meta kernel
+
+
+@pytest.mark.parametrize("R,C", [(1, 1), (1, 4), (3, 1), (2, 3), (3, 4),
+                                 (68, 120), (135, 240)])
+def test_deblock_meta_kernel_matches_plain(cuda_device, R, C):
+    """Every meta column of deblock_meta through the kernel equals the plain
+    version's on the same device tensors, for every case of
+    chip_smoke.meta_runs (P and I pictures, every QP form, slice starts);
+    the kernel calls read nothing back from the device."""
+    from chip_smoke import meta_runs
+
+    runs = meta_runs(R, C, cuda_device)
+    for _, kw in runs:  # build; the tables and slice rows cached
+        tda.deblock_meta(**kw, R=R, C=C)
+    before = tda.deblock_meta.launches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = [tda.deblock_meta(**kw, R=R, C=C) for _, kw in runs]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert tda.deblock_meta.launches == before + len(runs)
+    for (label, kw), meta in zip(runs, got):
+        want = tda.deblock_meta_plain(**kw, R=R, C=C)
+        assert meta.device == want.device, label
+        assert torch.equal(meta, want), label
+
+
+def test_deblock_meta_kernel_on_its_tensors_device(cuda_device):
+    from chip_smoke import meta_qps, meta_symbols
+
+    torch.cuda.set_device(0)
+    R, C = 3, 4
+    sym = meta_symbols(R, C, 5, "dense")
+    qmap = meta_qps("map", R, C, 5)[2]
+    want = tda.deblock_meta_plain(sym, 30, 29, R, C, (1,), qmap)
+    for dev in _launch_devices():
+        got = tda.deblock_meta(sym.to(dev), 30, 29, R, C, (1,), qmap.to(dev))
+        assert torch.cuda.current_device() == 0
+        assert got.device == dev and torch.equal(got.cpu(), want)

@@ -12,6 +12,9 @@ No card here, so three things stand in for it:
   and cost equal to local_pframe_core_plain's and search_refine_luma_plain's,
   with the QP as an int, a 0-d tensor and a per-MB map, on pictures full of
   ties, MVs past every edge and a row tile whose halo rows are real rows;
+  the uint8 entry too, on a whole-picture reference whose rows the kernel
+  clamps (against the int32 edge-padded one) and on a row tile's real halo
+  rows;
 - the same arithmetic against the JAX package's local_pframe_core, once per
   QP form.
 
@@ -34,7 +37,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import pcore_planes, pcore_qps
+from chip_smoke import PCORE_KINDS, pcore_planes, pcore_qps, pcore_whole_u8
 from media_tpu.pipeline import pframe_core as jpc
 from media_tpu_torch import kernels
 from media_tpu_torch.pipeline import pframe_core as tpc
@@ -90,6 +93,7 @@ def stub(monkeypatch):
 
     lib = types.SimpleNamespace(
         pframe_core_launch=entry("core"), pframe_search_launch=entry("search"),
+        pframe_core_u8_launch=entry("core_u8"),
         media_cuda_error_string=lambda err: b"stub error")
     streams = {}
     monkeypatch.setattr(torch.cuda, "device", device)
@@ -173,6 +177,46 @@ def test_wrapper_refuses_bad_arguments_and_raises_on_a_failed_launch(stub):
         tpc.search_refine_luma(cur, planes[3], rs, R, C)
     assert tpc.local_pframe_core.launches == 0
     assert tpc.search_refine_luma.launches == 0
+
+
+def test_uint8_planes_take_the_uint8_entry(stub):
+    """Six uint8 planes go to the uint8 entry as they are (no int32 copy):
+    with extended references (whole 0) from local_pframe_core, with the
+    picture alone (whole 1) from pframe_core_whole; int32 planes to the
+    int32 entry, whole-picture ones with their halos padded first."""
+    log, _, _ = stub
+    R, C, rs = 2, 3, 8
+    planes = _meta_planes(R, C, rs)
+    u8 = [p.to(torch.uint8) for p in planes]
+    whole = u8[:3] + [torch.empty(p.shape, dtype=torch.uint8,
+                                  device=p.device) for p in u8[:3]]
+    tpc.local_pframe_core(*u8, 30, 29, rs, R, C)
+    tpc.pframe_core_whole(*whole, 30, 29, rs, R, C)
+    tpc.pframe_core_whole(*(p.to(torch.int32) for p in whole), 30, 29, rs,
+                          R, C)
+    assert [name for name, _, _ in log] == ["core_u8", "core_u8", "core"]
+    assert [args[-2] for _, _, args in log[:2]] == [0, 1]
+    assert tuple(log[1][2][-5:-2]) == (R, C, rs)
+    strides = ctypes.cast(log[1][2][6], ctypes.POINTER(ctypes.c_int64))
+    assert [strides[i] for i in range(6)] == [16 * C, 8 * C, 8 * C] * 2
+    assert tpc.local_pframe_core.launches == 3
+    with pytest.raises(ValueError, match="ref_y_ext"):  # halo rows missing
+        tpc.local_pframe_core(*whole, 30, 29, rs, R, C)
+    with pytest.raises(ValueError, match="uint8"):
+        tpc.launch_pframe_core(*(p.to(torch.int32) for p in whole), 30, 29,
+                               rs, R, C, whole=True)
+
+
+def test_whole_picture_entry_on_cpu_pads_and_runs_the_plain_version(
+        monkeypatch):
+    monkeypatch.setattr(kernels, "load", lambda: pytest.fail("launched"))
+    monkeypatch.setattr(tpc.local_pframe_core, "launches", 0)
+    R, C, rs = 2, 3, 8
+    planes = pcore_planes(R, C, rs, 4)
+    want = tpc.local_pframe_core_plain(*planes, 30, 29, rs, R, C)
+    got = tpc.pframe_core_whole(*pcore_whole_u8(planes, rs), 30, 29, rs, R, C)
+    _assert_core_equal(got, want, "cpu")
+    assert tpc.local_pframe_core.launches == 0
 
 
 # ------------------------------------------- the kernel's arithmetic, on g++
@@ -344,3 +388,47 @@ def test_kernel_arithmetic_matches_jax(emulate, jax_cores, form):
     for k in KEYS:
         np.testing.assert_array_equal(got[k].numpy(), want[k], err_msg=k)
     assert np.abs(want["symbols"][..., :2]).max() > 0  # real MVs
+
+
+# ------------------------------------- the uint8 entry and the row clamp
+
+
+# Every picture kind of chip_smoke.PCORE_KINDS, at one MB, one row, one
+# column and a small grid, the QP in each form: MVs past the top and bottom
+# read the clamped rows.
+U8_CASES = [(R, C, rs, form, kind)
+            for (R, C), rs in (((1, 1), 8), ((1, 4), 4), ((3, 1), 8),
+                               ((3, 4), 8))
+            for form, kind in zip(("int", "0d", "map", "int", "0d", "map",
+                                   "low"), PCORE_KINDS)]
+
+
+@pytest.mark.parametrize("R,C,rs,form,kind", U8_CASES)
+def test_whole_picture_uint8_matches_padded_int32(emulate, R, C, rs, form,
+                                                  kind):
+    seed = 200 + 100 * R + 10 * C + rs
+    planes = pcore_planes(R, C, rs, seed, kind)
+    qp, qp_c = pcore_qps(form, R * C, seed)
+    want = tpc.local_pframe_core_plain(*planes, qp, qp_c, rs, R, C)
+    got = emulate.core(*pcore_whole_u8(planes, rs), qp, qp_c, rs, R, C,
+                       whole=True)
+    _assert_core_equal(got, want, (R, C, rs, form, kind))
+    _assert_core_equal(emulate.core(*planes, qp, qp_c, rs, R, C), got,
+                       "int32 extended")
+
+
+@pytest.mark.parametrize("rs,tile", [(8, 0), (4, 1), (8, 2)])
+def test_uint8_row_tile_reads_its_halo_rows_as_given(emulate, rs, tile):
+    """The tiles of three, their extension rows the neighbours' rows (edge
+    copies only at the picture's top and bottom), as uint8: the kernel does
+    not clamp them."""
+    R, C = 2, 4
+    planes = pcore_planes(R, C, rs, 9, "moving", tiles=3, tile=tile)
+    hy = rs + tpc.INTERP_HALO
+    if tile == 1:
+        assert not torch.equal(planes[3][:hy],
+                               planes[3][hy:hy + 1].expand(hy, -1))
+    qp, qp_c = pcore_qps("map", R * C, 9)
+    want = tpc.local_pframe_core_plain(*planes, qp, qp_c, rs, R, C)
+    u8 = [p.to(torch.uint8) for p in planes]
+    _assert_core_equal(emulate.core(*u8, qp, qp_c, rs, R, C), want, "tile")
