@@ -234,6 +234,12 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # kernels' int32 arithmetic (the data sheet gives no integer rate).
 PEAK_BYTES_S = 3.35e12
 PEAK_OPS_S = 67e12
+# Integer lanes an SM, each one 32-bit instruction a clock (NVIDIA H100
+# Tensor Core GPU Architecture whitepaper: 16 INT32 units in each of an SM's
+# four partitions). The card's integer rate is these over its SMs at its
+# highest SM clock (peak_int_ops_s); a packed-byte instruction, such as one
+# VABSDIFF4 over four samples, counts once.
+INT_LANES_PER_SM = 64
 # Integer operations of one line filter on its longest path, counted from
 # csrc/deblock_filters.cuh (loads, compares, adds, shifts, clips, stores).
 OPS_LUMA_LINE = 64
@@ -922,6 +928,31 @@ def _cuda_median_ms(fn, fresh, reps: int) -> float:
     return float(np.median([a.elapsed_time(b) for a, b in pairs]))
 
 
+def graph_ms(fn, reps: int = 50) -> float:
+    """Device ms of one call of fn: a CUDA graph of the call replayed `reps`
+    times between one event pair (no host work between the replays; the
+    inputs stay warm in L2)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def _bound(n_bytes: int, meta) -> dict:
     """The least time the card could take: bytes moved once over the memory
     rate against the line filters this meta asks for over the ALU rate."""
@@ -976,10 +1007,37 @@ def phase_environment():
     return smi
 
 
+# ptxas -v of this run's kernel build: mangled function name -> (stack
+# frame, spill stores, spill loads) in bytes.
+PTXAS: dict = {}
+
+
+def _ptxas_spills(log: str) -> dict:
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and name:
+            out[name] = tuple(int(v) for v in m.groups())
+            name = None
+    return out
+
+
 def phase_build():
+    import contextlib
+    import io
+
     from media_tpu_torch import kernels
 
-    lib, secs = kernels.build(verbose=True)
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        lib, secs = kernels.build(verbose=True)
+    print(log.getvalue(), end="")
+    PTXAS.update(_ptxas_spills(log.getvalue()))
     kernels.load()
     print(f"[build] {os.path.relpath(lib, ROOT)} nvcc {secs:.2f} s")
     from media_tpu_torch import native
@@ -1414,15 +1472,21 @@ def pcore_qps(form: str, n: int, seed: int):
             torch.as_tensor(rng.integers(0, 40, n), dtype=torch.int32))
 
 
-def pcore_runs(R, C, device):
-    """Every picture kind of PCORE_KINDS at both search ranges (8, the
-    session's, and 4), with the QP in its three forms in turn (QP 0 on the
-    noise): [(label, inputs, rs, qp, qp_c)] on `device`."""
+# The search ranges the P-core kernel is held at beyond the session's 8 and
+# 4: none, one sample, and the wrapper's widest, 32, with 16 between.
+PCORE_RANGES = (0, 1, 16, 32)
+
+
+def pcore_runs(R, C, device, ranges=(8, 4)):
+    """Every picture kind of PCORE_KINDS at each search range of `ranges`
+    (by default 8, the session's, and 4), with the QP in its three forms in
+    turn (QP 0 on the noise): [(label, inputs, rs, qp, qp_c)] on
+    `device`."""
     import torch
 
     runs = []
     forms = ("int", "0d", "map")
-    for rs in (8, 4):
+    for rs in ranges:
         for i, kind in enumerate(PCORE_KINDS):
             form = "low" if kind == "noise" else forms[(i + rs) % 3]
             seed = R * C + i + rs
@@ -1756,20 +1820,42 @@ def phase_kernel_pack(smi: str) -> dict:
     return rec
 
 
+def peak_int_ops_s() -> float:
+    """32-bit integer instructions a second of card 0: INT_LANES_PER_SM
+    over its SMs at its highest SM clock (nvidia-smi clocks.max.sm)."""
+    import torch
+
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], check=True, capture_output=True,
+        text=True).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return INT_LANES_PER_SM * sms * mhz * 1e6
+
+
 def _pcore_bound(planes, out, rs: int) -> dict:
     """The least time the card could take for the P core: the six input
     planes read once (uint8 on the encoder's entry), the symbols, recon
-    planes and SAD total written once, over the memory rate; against three
-    operations (subtract, absolute value, accumulate) per sample of every
-    full-pel and quarter-pel candidate over the ALU rate (a floor: the 6-tap
-    filters, the chroma MC and the transforms are more)."""
+    planes and SAD total written once, over the memory rate; against the
+    packed integer instructions its candidates need over the card's integer
+    rate: one SAD instruction a word of four samples of every full-pel and
+    quarter-pel candidate, and one byte average a word of the 40 quarter-pel
+    candidates of 49 that lie off the full- and half-pel grid (a floor: the
+    alignment, the 6-tap filters, the chroma MC and the transforms are
+    more). scalar_bound_ms: the count of the earlier kernel's design, three
+    operations (subtract, absolute value, accumulate) a sample at
+    PEAK_OPS_S."""
     n_mbs = out["symbols"].shape[0] * out["symbols"].shape[1]
     n_bytes = _nbytes(*planes, *out.values())
-    ops = n_mbs * ((2 * rs + 1) ** 2 + 49) * 256 * 3
-    t_bytes, t_ops = n_bytes / PEAK_BYTES_S, ops / PEAK_OPS_S
+    ops = n_mbs * ((2 * rs + 1) ** 2 + 49 + 40) * 64
+    int_rate = peak_int_ops_s()
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_S, ops / int_rate
+    scalar = n_mbs * ((2 * rs + 1) ** 2 + 49) * 256 * 3 / PEAK_OPS_S
     return {"bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bound_bytes": n_bytes, "bound_ops": ops,
+            "bound_int_ops_s": int_rate,
+            "scalar_bound_ms": max(t_bytes, scalar) * 1e3,
             # No PyTorch call computes a first-minimum SAD search or this
             # transform chain.
             "library_ms": None}
@@ -1791,23 +1877,26 @@ def phase_kernel_pcore(smi: str) -> dict:
     on the tiles' real halo rows). At 1080p both timed on fresh inputs, the
     uint8 whole-picture entry (the encoder's), the int32 entry and the
     search alone; one call of each through torch.profiler for its device
-    activities and busy time."""
+    activities and busy time; the kernel's registers, shared bytes, local
+    bytes, spills (ptxas) and resident blocks an SM."""
     import torch
 
     from media_tpu_torch.pipeline.pframe_core import (
-        launch_pframe_core, launch_search_refine_luma, local_pframe_core,
-        local_pframe_core_plain, pframe_core_whole, search_refine_luma_plain,
-        to_mbs)
+        kernel_resources, launch_pframe_core, launch_search_refine_luma,
+        local_pframe_core, local_pframe_core_plain, pframe_core_whole,
+        search_refine_luma_plain, to_mbs)
 
     dev = torch.device("cuda")
     t0 = time.perf_counter()
     max_err = 0
-    # Every run at the small shapes; at 1080p and 4K (where the plain
-    # version's time and the inputs' numpy build dominate the phase) every
-    # other run: both ranges, the three QP forms and QP 0, two-level,
-    # striped and off-edge pictures still among them.
+    # Every run at the small shapes, at ranges 8 and 4 and those of
+    # PCORE_RANGES; at 1080p and 4K (where the plain version's time and the
+    # inputs' numpy build dominate the phase) every other run at ranges 8
+    # and 4: both ranges, the three QP forms and QP 0, two-level, striped
+    # and off-edge pictures still among them.
     cases = [(f"{R}x{C}", R, C,
-              pcore_runs(R, C, dev)[:: 2 if R * C >= R_MB * C_MB else 1])
+              pcore_runs(R, C, dev)[::2] if R * C >= R_MB * C_MB else
+              pcore_runs(R, C, dev, (8, 4) + PCORE_RANGES))
              for R, C in PCORE_SHAPES]
     tiles = []
     for rs, t in ((8, 1), (4, 2)):
@@ -1874,6 +1963,9 @@ def phase_kernel_pcore(smi: str) -> dict:
     rec["search_plain_ms"] = _cuda_median_ms(
         lambda c, r: search_refine_luma_plain(c, r, rs, R, C),
         lambda: (cur.clone(), planes[3].clone()), 5)
+    rec["graph_ms"] = graph_ms(lambda: kernel(*whole))
+    rec["search_graph_ms"] = graph_ms(
+        lambda: launch_search_refine_luma(cur, planes[3], rs, R, C))
     want = plain(*planes)
     rec["max_abs_err"] = max(max_err, _core_err(kernel(*whole), want),
                              _core_err(kernel_int32(*planes), want))
@@ -1885,6 +1977,14 @@ def phase_kernel_pcore(smi: str) -> dict:
     (rec["plain_device_activities_per_call"],
      rec["plain_device_busy_ms"]) = _device_activities(lambda: plain(*planes))
     rec.update(_pcore_bound(whole, want, rs))
+    res = {kind: kernel_resources(rs, uint8=kind == "uint8")
+           for kind in ("uint8", "int32")}
+    spills = {("uint8" if "IhE" in name else "int32"): v
+              for name, v in PTXAS.items() if "pframe_core_kernel" in name}
+    for kind, r in res.items():
+        rec.update({f"{kind}_{k}": v for k, v in r.items()})
+        if kind in spills:
+            rec[f"{kind}_spill_store_bytes"] = spills[kind][1]
     before = local_pframe_core.launches
     local_pframe_core(*planes, qp, qp_c, rs, R, C)
     pframe_core_whole(*whole, qp, qp_c, rs, R, C)
@@ -1899,14 +1999,28 @@ def phase_kernel_pcore(smi: str) -> dict:
           f"call ({', '.join(activities)}) busy {rec['device_busy_ms']:.4f} "
           f"ms by the profiler; the int32 entry on extended planes "
           f"{rec['int32_ms']:.4f} ms (busy "
-          f"{rec['int32_device_busy_ms']:.4f}); the search alone "
+          f"{rec['int32_device_busy_ms']:.4f}); a CUDA graph of one call "
+          f"replayed 50 times, the device's time alone: the uint8 entry "
+          f"{rec['graph_ms']:.4f} ms, the search alone "
+          f"{rec['search_graph_ms']:.4f} ms; the search alone "
           f"{rec['search_ms']:.4f} ms (plain "
           f"{rec['search_plain_ms']:.3f}); plain {rec['plain_ms']:.3f} ms "
           f"(median of 5), {rec['plain_device_activities_per_call']} device "
           f"activities busy {rec['plain_device_busy_ms']:.3f} ms; bound "
           f"{rec['bound_ms']:.6f} ms by {rec['bound_by']} "
-          f"({rec['bound_bytes']} bytes, {rec['bound_ops']} operations); "
-          f"phase {time.perf_counter() - t0:.1f} s | {smi}")
+          f"({rec['bound_bytes']} bytes, {rec['bound_ops']} packed integer "
+          f"instructions at {rec['bound_int_ops_s'] / 1e12:.3f} T/s; three "
+          f"operations a sample at {PEAK_OPS_S / 1e12:.0f} T/s, the earlier "
+          f"count, {rec['scalar_bound_ms']:.6f} ms); "
+          + "; ".join(
+              f"{kind} instance {r['registers']} registers, "
+              f"{r['static_shared_bytes']} static + "
+              f"{r['dynamic_shared_bytes']} dynamic shared bytes, "
+              f"{r['local_bytes']} local bytes, spill stores "
+              f"{spills[kind][1] if kind in spills else 'not in this build'}"
+              f", {r['threads']} threads a block, {r['blocks_per_sm']} "
+              f"resident blocks an SM" for kind, r in res.items())
+          + f"; phase {time.perf_counter() - t0:.1f} s | {smi}")
     return rec
 
 

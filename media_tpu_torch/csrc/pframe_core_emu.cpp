@@ -2,8 +2,10 @@
 // (tests/test_torch_pframe_kernel.py builds it with g++ and hands it to the
 // wrapper in place of the kernel library): each entry point runs the same
 // per-MB function (pframe_core.cuh's mb_pframe) the kernel runs, over the
-// MBs in order, as one thread of a block of one. Pointers are to host
-// memory; the stream is not used. Returns 0, or -1 on a bad argument.
+// MBs in order, as one thread of a block of one; the packed helpers are the
+// header's byte loops, which pframe_packed_ops hands to the tests. Pointers
+// are to host memory; the stream is not used. Returns 0, or -1 on a bad
+// argument.
 
 #include <stdint.h>
 
@@ -19,7 +21,7 @@ template <typename Pix>
 int run(const Args<Pix>& a) {
   if (a.R <= 0 || a.C <= 0 || a.rs < 0 || a.rs > kMaxRange) return -1;
   if (a.sad_total) *a.sad_total = 0;
-  std::vector<int> smem(Smem::ints(a.rs));
+  std::vector<uint32_t> smem(Smem::words(a.rs));
   const Smem s(smem.data(), a.rs);
   for (int mb = 0; mb < a.R * a.C; ++mb) mb_pframe(a, mb, s, 0, 1);
   return 0;
@@ -60,4 +62,16 @@ extern "C" int pframe_search_launch(const int32_t* cur, const int32_t* ref_y,
                                     int32_t* pred, int32_t* cost, int R, int C,
                                     int rs, void*) {
   return run(search_args(cur, ref_y, ref_row, qmv, pred, cost, R, C, rs));
+}
+
+// The packed helpers on n word pairs, for the tests: for each i, out[6 i]
+// = sad4(a[i], b[i], acc[i]), out[6 i + 1] = avg4(a[i], b[i]) and
+// out[6 i + 2 + n] = align4(a[i], b[i], n) for n = 0..3.
+extern "C" void pframe_packed_ops(const uint32_t* a, const uint32_t* b,
+                                  const uint32_t* acc, int n, uint32_t* out) {
+  for (int i = 0; i < n; ++i) {
+    out[6 * i] = sad4(a[i], b[i], acc[i]);
+    out[6 * i + 1] = avg4(a[i], b[i]);
+    for (int k = 0; k < 4; ++k) out[6 * i + 2 + k] = align4(a[i], b[i], k);
+  }
 }

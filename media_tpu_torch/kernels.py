@@ -94,6 +94,8 @@ def load() -> ctypes.CDLL:
     lib.deblock_wave_step_inplace_launch.restype = ci
     lib.media_cuda_error_string.argtypes = [ci]
     lib.media_cuda_error_string.restype = ctypes.c_char_p
+    lib.pframe_core_occupancy.argtypes = [ci, ci, vp]
+    lib.pframe_core_occupancy.restype = ci
     return bind_deblock_meta(
         bind_intra_wave(bind_pframe_core(bind_device_cavlc(lib))))
 

@@ -355,14 +355,17 @@ def _ptr(t):
 
 def launch_pframe_core(cur_y, cur_u, cur_v, ref_y_ext, ref_u_ext, ref_v_ext,
                        qp, qp_c, search_range: int, n_rows: int,
-                       n_cols: int, whole: bool = False):
+                       n_cols: int, whole: bool = False, lib=None):
     """Launch the P-core kernel (csrc/pframe_core.cu) on the current stream
     of the tensors' device, with that device current: no count. Returns what
     local_pframe_core_plain returns, in fresh tensors; reads nothing back
     from the device (a device QP is read by the kernel). Six uint8 planes
-    are read as they are, any other six as int32 copies. whole: the
-    reference planes are the picture alone (uint8 only), whose rows the
-    kernel clamps to the picture, as edge padding would extend them."""
+    are read as they are, any other six as int32 copies, whose samples must
+    be 0..255: the kernel keeps a sample's low byte. whole: the reference
+    planes are the picture alone (uint8 only), whose rows the kernel clamps
+    to the picture, as edge padding would extend them. lib: the kernel
+    library to launch from (bound by kernels.bind_pframe_core); the
+    package's own by default."""
     from .. import kernels
 
     R, C, rs = int(n_rows), int(n_cols), int(search_range)
@@ -394,7 +397,7 @@ def launch_pframe_core(cur_y, cur_u, cur_v, ref_y_ext, ref_u_ext, ref_v_ext,
         "sad_total": torch.empty((), dtype=torch.int32, device=dev),
     }
     strides = (ctypes.c_int64 * 6)(*(p.stride(0) for p in planes))
-    lib = kernels.load()
+    lib = lib or kernels.load()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         args = (*(_ptr(p) for p in planes),
@@ -415,11 +418,36 @@ def launch_pframe_core(cur_y, cur_u, cur_v, ref_y_ext, ref_u_ext, ref_v_ext,
     return out
 
 
+def kernel_resources(search_range: int, uint8: bool = True,
+                     lib=None) -> dict:
+    """What the P-core kernel's uint8 (or int32) instance holds on the
+    current CUDA device at `search_range`: registers a thread, static and
+    dynamic shared bytes a block, local bytes a thread (stack and spills),
+    threads a block, and the blocks an SM keeps resident
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor). lib as in
+    launch_pframe_core."""
+    from .. import kernels
+
+    rs = int(search_range)
+    _check_range(rs)
+    out = (ctypes.c_int * 6)()
+    err = (lib or kernels.load()).pframe_core_occupancy(rs, int(bool(uint8)),
+                                                        out)
+    if err:
+        raise RuntimeError(f"pframe_core occupancy query failed: "
+                           f"{kernels.error_string(err)}")
+    return dict(zip(("registers", "static_shared_bytes",
+                     "dynamic_shared_bytes", "local_bytes", "threads",
+                     "blocks_per_sm"), out))
+
+
 def launch_search_refine_luma(cur, ref_y_ext, search_range: int, R: int,
-                              C: int):
+                              C: int, lib=None):
     """Launch the search alone (the same kernel without its coding stages)
     on the current stream of the tensors' device: no count. Returns (qmv,
-    pred, cost) as search_refine_luma_plain does, in int32."""
+    pred, cost) as search_refine_luma_plain does, in int32. The samples
+    must be 0..255: the kernel keeps each one's low byte. lib as in
+    launch_pframe_core."""
     from .. import kernels
 
     R, C, rs = int(R), int(C), int(search_range)
@@ -435,7 +463,7 @@ def launch_search_refine_luma(cur, ref_y_ext, search_range: int, R: int,
     qmv = torch.empty((n, 2), dtype=torch.int32, device=dev)
     pred = torch.empty((n, 16, 16), dtype=torch.int32, device=dev)
     cost = torch.empty((n,), dtype=torch.int32, device=dev)
-    lib = kernels.load()
+    lib = lib or kernels.load()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.pframe_search_launch(
@@ -450,9 +478,10 @@ def launch_search_refine_luma(cur, ref_y_ext, search_range: int, R: int,
 def search_refine_luma(cur, ref_y_ext, search_range: int, R: int, C: int):
     """Full-pel search + quarter-pel refinement against one reference:
     (qmv (N, 2) quarter-pel, pred (N, 16, 16), cost (N,)), as
-    search_refine_luma_plain defines them. On CPU tensors it runs the plain
-    version; on CUDA tensors it launches the kernel on the current stream
-    and counts the call in `search_refine_luma.launches`."""
+    search_refine_luma_plain defines them, for samples 0..255. On CPU
+    tensors it runs the plain version; on CUDA tensors it launches the
+    kernel on the current stream and counts the call in
+    `search_refine_luma.launches`."""
     if cur.device.type == "cpu":
         return search_refine_luma_plain(cur, ref_y_ext.to(torch.int32),
                                         search_range, R, C)
@@ -472,9 +501,10 @@ def local_pframe_core(cur_y, cur_u, cur_v, ref_y_ext, ref_u_ext, ref_v_ext,
     rate loop computed on the device) or as per-MB (R*C,) tensors. ref_y_ext
     has `search_range + INTERP_HALO` extra rows above/below, ref_[uv]_ext
     `search_range // 2 + 2`; their rows are read as given (a row tile's
-    halo is its neighbour's rows). On CPU tensors it runs the plain
-    version on int32 copies; on CUDA tensors it launches the kernel on the
-    current stream (on uint8 planes as they are) and counts the call in
+    halo is its neighbour's rows). Samples are 0..255 (the kernel reads the
+    low byte of an int32 sample). On CPU tensors it runs the plain version
+    on int32 copies; on CUDA tensors it launches the kernel on the current
+    stream (on uint8 planes as they are) and counts the call in
     `local_pframe_core.launches`."""
     planes = (cur_y, cur_u, cur_v, ref_y_ext, ref_u_ext, ref_v_ext)
     args = (qp, qp_c, search_range, n_rows, n_cols)

@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import PACK_SHAPES
+from chip_smoke import PACK_SHAPES, PCORE_RANGES
 from media_tpu_torch.ops import deblock_pallas as dp
 from media_tpu_torch.ops import deblock_wave as dw
 from media_tpu_torch.pipeline import deblock_apply as tda
@@ -707,6 +707,50 @@ def test_pframe_core_kernel_matches_plain(cuda_device, R, C):
                                            planes[3], rs, R, C)
         for name, a, b in zip(("qmv", "pred", "cost"), search, want):
             assert a.dtype == b.dtype and torch.equal(a, b), (label, name)
+
+
+# The search ranges beyond the session's 8 and 4 (none, one sample, 16 and
+# the widest the wrapper takes, 32) on small grids.
+@pytest.mark.parametrize("R,C", [(1, 1), (2, 3), (5, 1), (6, 9)])
+@pytest.mark.parametrize("rs", PCORE_RANGES)
+def test_pframe_core_kernel_at_every_search_range(cuda_device, R, C, rs):
+    """Every picture kind at the range, the QP in each form: the int32 and
+    uint8 entries (extended planes, and the whole picture whose rows the
+    kernel clamps) and the search alone equal their plain versions."""
+    from chip_smoke import pcore_runs, pcore_whole_u8
+    from media_tpu_torch.pipeline import pframe_core as pc
+
+    for label, planes, rs, qp, qp_c in pcore_runs(R, C, cuda_device, (rs,)):
+        want = pc.local_pframe_core_plain(*planes, qp, qp_c, rs, R, C)
+        for entry, got in (
+                ("int32", pc.local_pframe_core(*planes, qp, qp_c, rs, R, C)),
+                ("uint8", pc.local_pframe_core(
+                    *(p.to(torch.uint8) for p in planes), qp, qp_c, rs, R,
+                    C)),
+                ("whole", pc.pframe_core_whole(
+                    *pcore_whole_u8(planes, rs), qp, qp_c, rs, R, C))):
+            for k, v in want.items():
+                assert got[k].dtype == v.dtype, (label, entry, k)
+                assert torch.equal(got[k], v), (label, entry, k)
+        cur = pc.to_mbs(planes[0], R, C, 16)
+        got = pc.search_refine_luma(cur, planes[3], rs, R, C)
+        want = pc.search_refine_luma_plain(cur, planes[3], rs, R, C)
+        for name, a, b in zip(("qmv", "pred", "cost"), got, want):
+            assert a.dtype == b.dtype and torch.equal(a, b), (label, name)
+
+
+def test_pframe_core_kernel_resources(cuda_device):
+    """Both instances keep everything in registers (no stack, no spill) and
+    keep at least 8 blocks of 128 threads resident an SM at every range,
+    the uint8 one (the encoder's) 12 at rs 8."""
+    from media_tpu_torch.pipeline import pframe_core as pc
+
+    for rs in (0, 8, 32):
+        for uint8 in (True, False):
+            r = pc.kernel_resources(rs, uint8)
+            assert r["threads"] == 128 and r["blocks_per_sm"] >= 8, r
+            assert r["local_bytes"] == 0, r
+    assert pc.kernel_resources(8)["blocks_per_sm"] == 12
 
 
 def test_pframe_core_kernel_on_a_row_tile(cuda_device):

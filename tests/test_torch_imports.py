@@ -148,6 +148,16 @@ def test_chip_smoke_source_names_no_jax_import():
             assert words[1].split(".")[0] not in ("jax", "media_tpu"), line
 
 
+def test_pcore_tune_source_names_no_jax_import():
+    """The P core's tuning script at the root runs on the card's host, which
+    has no JAX: it imports the port and chip_smoke.py only."""
+    src = (ROOT / "pcore_tune.py").read_text()
+    for line in src.splitlines():
+        words = line.split()
+        if words[:1] in (["import"], ["from"]):
+            assert words[1].split(".")[0] not in ("jax", "media_tpu"), line
+
+
 def test_c_bridge_names_only_the_ports_modules():
     """The port's C ABI bridge and its C caller import Python modules by
     name: media_tpu_torch's, never the JAX package's."""

@@ -11,10 +11,12 @@ No card here, so three things stand in for it:
   called through the wrapper: every symbol, recon sample, MV, prediction
   and cost equal to local_pframe_core_plain's and search_refine_luma_plain's,
   with the QP as an int, a 0-d tensor and a per-MB map, on pictures full of
-  ties, MVs past every edge and a row tile whose halo rows are real rows;
-  the uint8 entry too, on a whole-picture reference whose rows the kernel
-  clamps (against the int32 edge-padded one) and on a row tile's real halo
-  rows;
+  ties, MVs past every edge and a row tile whose halo rows are real rows,
+  at search ranges 0, 1, 4, 8, 16 and 32, and with samples of 0 and 255
+  only; the uint8 entry too, on a whole-picture reference whose rows the
+  kernel clamps (against the int32 edge-padded one) and on a row tile's
+  real halo rows; and the packed helpers the arithmetic is made of (sad4,
+  avg4, align4) against byte-by-byte numpy;
 - the same arithmetic against the JAX package's local_pframe_core, once per
   QP form.
 
@@ -37,7 +39,8 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import PCORE_KINDS, pcore_planes, pcore_qps, pcore_whole_u8
+from chip_smoke import (PCORE_KINDS, PCORE_RANGES, pcore_planes, pcore_qps,
+                        pcore_whole_u8)
 from media_tpu.pipeline import pframe_core as jpc
 from media_tpu_torch import kernels
 from media_tpu_torch.pipeline import pframe_core as tpc
@@ -351,6 +354,95 @@ def test_strided_planes(emulate):
     _assert_core_equal(emulate.core(*u8, 28, 27, rs, R, C), want, "uint8")
 
 
+# ------------------------------------------------------ the packed helpers
+
+
+def _bytes(words):
+    """(n,) words -> (n, 4) int64 bytes, the lowest first."""
+    w = np.asarray(words, dtype=np.uint64)[:, None]
+    return ((w >> np.array([0, 8, 16, 24], dtype=np.uint64)) & 255).astype(
+        np.int64)
+
+
+def _words(b):
+    """(n, 4) bytes -> (n,) uint64 words."""
+    return (np.asarray(b, dtype=np.uint64)
+            << np.array([0, 8, 16, 24], dtype=np.uint64)).sum(1)
+
+
+@pytest.mark.parametrize("kind", ["random", "extremes"])
+def test_packed_helpers_match_their_byte_loops(emu_lib, kind):
+    """sad4, avg4 and align4 at every byte shift (pframe_core.cuh's host
+    forms, which the g++ build runs), on random words and on words of 0x00
+    and 0xff bytes, against byte-by-byte numpy."""
+    rng = np.random.default_rng(14 if kind == "random" else 15)
+    n = 4096
+    if kind == "random":
+        a, b = (rng.integers(0, 1 << 32, n, dtype=np.uint64) for _ in "ab")
+    else:  # every byte 0x00 or 0xff, all 256 pairs of patterns among them
+        a, b = (_words(rng.choice([0, 255], (n, 4))) for _ in "ab")
+        pats = _words([[(k >> i & 1) * 255 for i in range(4)]
+                       for k in range(16)])
+        a[:256], b[:256] = np.repeat(pats, 16), np.tile(pats, 16)
+    acc = rng.integers(0, 1 << 24, n, dtype=np.uint64)
+    out = np.zeros(6 * n, dtype=np.uint32)
+    u32 = ctypes.POINTER(ctypes.c_uint32)
+    emu_lib.pframe_packed_ops.argtypes = [u32, u32, u32, ctypes.c_int, u32]
+    emu_lib.pframe_packed_ops.restype = None
+    args = [np.ascontiguousarray(x, dtype=np.uint32) for x in (a, b, acc)]
+    emu_lib.pframe_packed_ops(*(x.ctypes.data_as(u32) for x in args), n,
+                              out.ctypes.data_as(u32))
+    out = out.reshape(n, 6).astype(np.uint64)
+    A, B = _bytes(a), _bytes(b)
+    np.testing.assert_array_equal(out[:, 0], acc + np.abs(A - B).sum(1))
+    np.testing.assert_array_equal(out[:, 1], _words((A + B + 1) >> 1))
+    both = np.concatenate([A, B], axis=1)
+    for k in range(4):
+        np.testing.assert_array_equal(out[:, 2 + k], _words(both[:, k:k + 4]),
+                                      err_msg=f"align4 by {k}")
+
+
+# ------------------------------------------------ the other search ranges
+
+
+# None, one sample, 16 and the widest the wrapper takes, 32, on one MB and
+# a 2x3 grid: a pan, MVs past the near edges with a QP map, noise at QP 0.
+RANGE_CASES = [(R, C, rs, form, kind)
+               for R, C in ((1, 1), (2, 3)) for rs in PCORE_RANGES
+               for form, kind in (("0d", "moving"), ("map", "edge_near"),
+                                  ("low", "noise"))]
+
+
+@pytest.mark.parametrize("R,C,rs,form,kind", RANGE_CASES)
+def test_kernel_arithmetic_at_every_search_range(emulate, R, C, rs, form,
+                                                 kind):
+    """The int32 entry, the uint8 entry on extended planes and on the whole
+    picture, and the search alone, against the plain versions."""
+    seed = 300 + 10 * R * C + rs
+    planes = pcore_planes(R, C, rs, seed, kind)
+    qp, qp_c = pcore_qps(form, R * C, seed)
+    want = tpc.local_pframe_core_plain(*planes, qp, qp_c, rs, R, C)
+    what = (R, C, rs, form, kind)
+    _assert_core_equal(emulate.core(*planes, qp, qp_c, rs, R, C), want, what)
+    _assert_core_equal(emulate.core(*(p.to(torch.uint8) for p in planes), qp,
+                                    qp_c, rs, R, C), want, what)
+    _assert_core_equal(emulate.core(*pcore_whole_u8(planes, rs), qp, qp_c, rs,
+                                    R, C, whole=True), want, what)
+    _assert_search_equal(emulate, planes, rs, R, C, what)
+
+
+@pytest.mark.parametrize("rs", (8,) + PCORE_RANGES)
+def test_int32_entry_with_samples_at_0_and_255(emulate, rs):
+    """Planes of 0 and 255 only through the int32 entry, which narrows each
+    sample to its byte: the extremes of every SAD, mean and filter."""
+    R, C = 2, 3
+    planes = [torch.where(p > 127, 255, 0).to(torch.int32)
+              for p in pcore_planes(R, C, rs, 400 + rs, "noise")]
+    want = tpc.local_pframe_core_plain(*planes, 30, 29, rs, R, C)
+    _assert_core_equal(emulate.core(*planes, 30, 29, rs, R, C), want, rs)
+    _assert_search_equal(emulate, planes, rs, R, C, rs)
+
+
 # ------------------------------------------------ against the JAX package
 
 
@@ -432,3 +524,22 @@ def test_uint8_row_tile_reads_its_halo_rows_as_given(emulate, rs, tile):
     want = tpc.local_pframe_core_plain(*planes, qp, qp_c, rs, R, C)
     u8 = [p.to(torch.uint8) for p in planes]
     _assert_core_equal(emulate.core(*u8, qp, qp_c, rs, R, C), want, "tile")
+
+
+# ------------------------------------------------------------ tuning builds
+
+
+@pytest.mark.parametrize("skip", [0] + [1 << k for k in range(1, 8)])
+def test_tuning_patches_apply_to_the_sources(skip):
+    """pcore_tune.py's variants patch copies of the kernel's sources: every
+    text a patch looks for is still there as many times as it expects."""
+    import pcore_tune
+
+    base = pcore_tune.patched_sources(kernels.CSRC, 128, 0, 0)
+    for name in base:
+        with open(os.path.join(kernels.CSRC, name)) as f:
+            assert base[name] == f.read()
+    got = pcore_tune.patched_sources(kernels.CSRC, 64, 4, skip)
+    assert "constexpr int kThreads = 64;" in got["pframe_core.cu"]
+    assert "return 4;" in got["pframe_core.cu"]
+    assert (got["pframe_core.cuh"] != base["pframe_core.cuh"]) == bool(skip)
