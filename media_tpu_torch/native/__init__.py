@@ -28,6 +28,7 @@ import os
 import subprocess
 import sys
 import sysconfig
+import threading
 import time
 
 import numpy as np
@@ -306,7 +307,10 @@ def write_islice_native(bw, mode16, chroma_mode, dc, ac, cdc, cac) -> None:
 
 def write_pslice_native(bw, mv, luma, cdc, cac) -> None:
     """Append all MBs of a uniform-QP P slice and the RBSP trailing bits to
-    BitWriter `bw` (CAVLC)."""
+    BitWriter `bw` (CAVLC). Counts the call in `write_pslice_native.calls`:
+    on the staged P path, a slice the device packer did not take."""
+    with _COUNT_LOCK:  # sessions in several threads write slices
+        write_pslice_native.calls += 1
     lib = load()
     R, C = mv.shape[:2]
     out, out_p, cap = _out_bytes(R, C)
@@ -323,6 +327,10 @@ def write_pslice_native(bw, mv, luma, cdc, cac) -> None:
     bw._buf.extend(out[:n].tobytes())
     bw._acc = 0
     bw._nbits = 0
+
+
+write_pslice_native.calls = 0
+_COUNT_LOCK = threading.Lock()
 
 
 def escape_rbsp_native(data: bytes) -> bytes:

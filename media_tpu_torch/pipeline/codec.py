@@ -25,6 +25,7 @@ from ..core.nal import H264NalType, wrap_nal
 from ..core.syntax import (
     PPS, PROFILE_BY_NAME, SPS, SliceHeader, sei_recovery_point, sei_user_data,
     write_aud_rbsp, write_sei_rbsp)
+from ..core.trace import span
 from ..device import resolve_device
 from ..entropy import cabac_slice
 from ..entropy.device_cavlc import merge_slice_data
@@ -421,41 +422,45 @@ class EncoderSession:
         enc = self._frame_encoder
         prev_recon = self.recon
         cap = self._device_cap()
-        streams_d, bits_d, recon = enc.encode_pframes_packed_dev(
-            ys_d, us_d, vs_d, prev_recon, cfg.qp, deblock=cfg.deblock,
-            cap=cap)
+        with span("enc.p.dispatch"):
+            streams_d, bits_d, recon = enc.encode_pframes_packed_dev(
+                ys_d, us_d, vs_d, prev_recon, cfg.qp, deblock=cfg.deblock,
+                cap=cap)
         self.recon = tuple(recon)
         frame_base = self.frame_idx
         self.frame_idx += k
 
         def finish() -> list[bytes]:
-            bits = bits_d.cpu().numpy()
-            if int(bits.max()) > cap * 32 and cap < enc.cap_words:
-                # Adaptive cap overflowed: retry on the device at the full
-                # budget (the bitstream is identical; only the buffer size
-                # differs).
-                streams, bits, _recon = enc.encode_pframes_packed(
-                    ys, us, vs, *prev_recon, cfg.qp, deblock=cfg.deblock,
-                    cap=enc.cap_words)
-                streams_np, cap_eff = streams, enc.cap_words
-            else:
-                streams_np, cap_eff = None, cap
-            self._note_bits(int(bits.max()))
-            if int(bits.max()) <= cap_eff * 32:
-                if streams_np is None:
-                    nw = stream_prefix_words(int(bits.max()), cap_eff)
-                    streams_np = streams_d[:, :nw].cpu().numpy().astype(
-                        np.uint32)
-                return [self._pslice_au_packed(streams_np[j], int(bits[j]),
-                                               frame_idx=frame_base + j)
+            with span("enc.p.finish"):
+                with span("enc.p.download"):
+                    bits = bits_d.cpu().numpy()
+                    streams_np = None
+                    if int(bits.max()) <= cap * 32:
+                        nw = stream_prefix_words(int(bits.max()), cap)
+                        streams_np = streams_d[:, :nw].cpu().numpy().astype(
+                            np.uint32)
+                cap_eff = cap
+                if streams_np is None and cap < enc.cap_words:
+                    # Adaptive cap overflowed: retry on the device at the
+                    # full budget (the bitstream is identical; only the
+                    # buffer size differs).
+                    streams_np, bits, _recon = enc.encode_pframes_packed(
+                        ys, us, vs, *prev_recon, cfg.qp, deblock=cfg.deblock,
+                        cap=enc.cap_words)
+                    cap_eff = enc.cap_words
+                self._note_bits(int(bits.max()))
+                if int(bits.max()) <= cap_eff * 32:
+                    with span("enc.p.assemble"):
+                        return [self._pslice_au_packed(
+                            streams_np[j], int(bits[j]),
+                            frame_idx=frame_base + j) for j in range(k)]
+                # Rare overflow (bits above the device stream budget): re-run
+                # for symbols and pack on the host. Recon is unaffected.
+                symbols, _recon = enc.encode_pframes_batch(
+                    ys, us, vs, *prev_recon, cfg.qp, deblock=cfg.deblock)
+                return [self._pslice_au(unpack_symbols(symbols[j]),
+                                        frame_idx=frame_base + j)
                         for j in range(k)]
-            # Rare overflow (bits above the device stream budget): re-run for
-            # symbols and pack on the host. Recon is unaffected.
-            symbols, _recon = enc.encode_pframes_batch(
-                ys, us, vs, *prev_recon, cfg.qp, deblock=cfg.deblock)
-            return [self._pslice_au(unpack_symbols(symbols[j]),
-                                    frame_idx=frame_base + j)
-                    for j in range(k)]
 
         return finish
 
@@ -912,40 +917,43 @@ class EncoderSession:
         cfg = self.cfg
         self.recon = (result.recon_y, result.recon_u, result.recon_v)
         self.frame_idx_of_idr = self.frame_idx
-        slice_nals = b""
-        for r0, r1 in self.slice_rows:
-            bw = self._islice_header_writer(r0, qp_i)
-            sym = tuple(getattr(result, k)[r0:r1] for k in (
-                "mode16", "chroma_mode", "dc_levels", "ac_levels",
-                "cdc_levels", "cac_levels"))
-            i4 = {}
-            if result.is_i4 is not None:
-                i4 = dict(is_i4=result.is_i4[r0:r1],
-                          modes4=result.modes4[r0:r1],
-                          luma4_levels=result.luma4_levels[r0:r1])
-            if cfg.cabac:
-                while not bw.byte_aligned():
-                    bw.u(1, 1)  # cabac_alignment_one_bit
-                payload = (native.cabac_write_islice_native(*sym, qp_i, **i4)
-                           if self._native else None)
-                if payload is None:
-                    payload = cabac_slice.write_islice_cabac(*sym, qp_i, **i4)
-                rbsp = bw.get_bytes() + payload
-            else:
-                # The C++ CAVLC writer codes I_16x16 only.
-                if self._native and not i4:
-                    native.write_islice_native(bw, *sym)
+        with span("enc.idr.write"):
+            slice_nals = b""
+            for r0, r1 in self.slice_rows:
+                bw = self._islice_header_writer(r0, qp_i)
+                sym = tuple(getattr(result, k)[r0:r1] for k in (
+                    "mode16", "chroma_mode", "dc_levels", "ac_levels",
+                    "cdc_levels", "cac_levels"))
+                i4 = {}
+                if result.is_i4 is not None:
+                    i4 = dict(is_i4=result.is_i4[r0:r1],
+                              modes4=result.modes4[r0:r1],
+                              luma4_levels=result.luma4_levels[r0:r1])
+                if cfg.cabac:
+                    while not bw.byte_aligned():
+                        bw.u(1, 1)  # cabac_alignment_one_bit
+                    payload = (native.cabac_write_islice_native(
+                        *sym, qp_i, **i4) if self._native else None)
+                    if payload is None:
+                        payload = cabac_slice.write_islice_cabac(
+                            *sym, qp_i, **i4)
+                    rbsp = bw.get_bytes() + payload
                 else:
-                    slice_coder.write_islice_mbs(
-                        bw, mode16=sym[0], chroma_mode=sym[1],
-                        dc_levels=sym[2], ac_levels=sym[3], cdc_levels=sym[4],
-                        cac_levels=sym[5], **i4)
-                    bw.rbsp_trailing_bits()
-                rbsp = bw.get_bytes()
-            slice_nals += wrap_nal(H264NalType.IDR_SLICE, rbsp, nal_ref_idc=3)
-        self.idr_pic_id = (self.idr_pic_id + 1) & 0xFFFF
+                    # The C++ CAVLC writer codes I_16x16 only.
+                    if self._native and not i4:
+                        native.write_islice_native(bw, *sym)
+                    else:
+                        slice_coder.write_islice_mbs(
+                            bw, mode16=sym[0], chroma_mode=sym[1],
+                            dc_levels=sym[2], ac_levels=sym[3],
+                            cdc_levels=sym[4], cac_levels=sym[5], **i4)
+                        bw.rbsp_trailing_bits()
+                    rbsp = bw.get_bytes()
+                slice_nals += wrap_nal(H264NalType.IDR_SLICE, rbsp,
+                                       nal_ref_idc=3)
+            self.idr_pic_id = (self.idr_pic_id + 1) & 0xFFFF
 
-        au = self._idr_au_prefix() + slice_nals
+            au = self._idr_au_prefix() + slice_nals
         if cfg.rc_mode == "cbr":
             # Charge the I frame against the buffer at an allowance of 4x the
             # per-frame target (typical I/P size ratio at equal quality).

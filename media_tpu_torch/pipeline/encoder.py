@@ -19,6 +19,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..core.trace import span
 from ..device import resolve_device
 from ..ops import intra as intra_ops
 from ..ops import transform as T
@@ -372,16 +373,18 @@ class FrameEncoder:
         each block predicted from the reconstruction of the ones before it)
         and I_16x16, on the skew-2 wave schedule."""
         dev = self.device
-        out = self._encode_iframe_device(
-            _plane_tensor(y, dev).to(torch.int32),
-            _plane_tensor(u, dev).to(torch.int32),
-            _plane_tensor(v, dev).to(torch.int32),
-            qp, int(T.chroma_qp(qp)), deblock, i4x4)
+        with span("enc.idr.launch"):
+            out = self._encode_iframe_device(
+                _plane_tensor(y, dev).to(torch.int32),
+                _plane_tensor(u, dev).to(torch.int32),
+                _plane_tensor(v, dev).to(torch.int32),
+                qp, int(T.chroma_qp(qp)), deblock, i4x4)
         keys = ("mode16", "chroma_mode", "dc_levels", "ac_levels",
                 "cdc_levels", "cac_levels")
         if i4x4:
             keys += ("is_i4", "modes4", "luma4_levels")
-        host = {k: out[k].cpu().numpy() for k in keys}
+        with span("enc.idr.download"):
+            host = {k: out[k].cpu().numpy() for k in keys}
         return IFrameResult(**host, recon_y=out["recon_y"],
                             recon_u=out["recon_u"], recon_v=out["recon_v"])
 
