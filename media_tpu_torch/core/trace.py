@@ -13,13 +13,18 @@ The spans, by name:
 - `enc.p.dispatch`: one chunk of the staged P path as launched
   (`EncoderSession._dispatch_packed`): the P core, the deblocking meta and
   kernel 1, the symbol unpack and the packer a frame, the stacks of the
-  chunk's streams and bit counts; Python, ctypes and launches.
+  chunk's streams and bit counts; on CUDA also the copy of the bit counts
+  to pinned memory and the chunk's completion event recorded behind it.
+  Python, ctypes and launches.
 - `enc.p.finish`: that chunk's finisher, which the next chunk's dispatch
   precedes (depth-2 pipeline). It holds the two spans below; its own time
   is the rare re-packs, the device retry at the full stream budget and the
   host writer's fallback.
-- `enc.p.download`: the copies of the chunk's bit counts and stream words
-  to the host, with the wait for every kernel enqueued before them.
+- `enc.p.download`: on CUDA, the wait for the chunk's own completion event
+  (not for the chunk dispatched after it) and the copy of its stream words
+  to pinned memory on the session's side stream, which runs beside the
+  next chunk's kernels; on other devices, the copies of the bit counts and
+  stream words, with the wait for every kernel enqueued before them.
 - `enc.p.assemble`: the chunk's access units from the downloaded words:
   slice headers, `merge_slice_data`, `wrap_nal`, the AUD.
 - `enc.idr.launch`: an IDR's planes uploaded and cast, the intra wavefront
@@ -34,9 +39,16 @@ A chunk's `enc.p.dispatch` and `enc.p.finish` pair by their order within a
 thread: the pipeline finishes chunks first in, first out, so the n-th
 finish of a thread belongs to its n-th dispatch.
 
-The counter beside them, in the port's `.launches` idiom, is
-`native.write_pslice_native.calls`: calls of the C++ CAVLC P-slice writer.
-On the staged path each is a P frame that the device packer could not take.
+The counters beside them, in the port's `.launches` idiom:
+
+- `native.write_pslice_native.calls`: calls of the C++ CAVLC P-slice
+  writer. On the staged path each is a P frame that the device packer could
+  not take.
+- `pipeline.codec.wait_for_chunk.ready` and `.waited`: CUDA chunks of the
+  packed P path whose completion event had fired when their `enc.p.download`
+  began (the host set the pace, and assembly overlapped the device), and
+  those whose event had not (the device set it). Their sum is the chunks
+  finished.
 """
 
 from __future__ import annotations

@@ -14,6 +14,7 @@ session runs on the GPU unless the caller passes device="cpu".
 from __future__ import annotations
 
 import math
+import threading
 from dataclasses import dataclass
 
 import numpy as np
@@ -69,6 +70,45 @@ class EncoderConfig:
     adaptive_qp: bool = False
     b_frames: int = 0
     lossless: bool = False
+
+
+class _PinnedRing:
+    """Two pinned host buffers of one dtype, handed out in turn, each grown
+    only when a request is larger than what it holds."""
+
+    def __init__(self, dtype):
+        self._dtype = dtype
+        self._bufs = [None, None]
+        self._next = 0
+
+    def take(self, n: int) -> torch.Tensor:
+        i = self._next
+        self._next ^= 1
+        buf = self._bufs[i]
+        if buf is None or buf.numel() < n:
+            buf = self._bufs[i] = torch.empty(n, dtype=self._dtype,
+                                              pin_memory=True)
+        return buf
+
+
+def wait_for_chunk(done) -> None:
+    """Wait for a staged P chunk's completion event. Counts the chunk in
+    `wait_for_chunk.ready` where the event had fired when its finisher
+    began (the host set the pace), else in `wait_for_chunk.waited` (the
+    device did)."""
+    ready = done.query()
+    with _COUNT_LOCK:  # sessions in several threads call it
+        if ready:
+            wait_for_chunk.ready += 1
+        else:
+            wait_for_chunk.waited += 1
+    if not ready:
+        done.synchronize()
+
+
+wait_for_chunk.ready = 0
+wait_for_chunk.waited = 0
+_COUNT_LOCK = threading.Lock()
 
 
 def _check_supported(cfg: EncoderConfig) -> None:
@@ -151,6 +191,12 @@ class EncoderSession:
         # High-water-mark of per-frame slice_data bits, for right-sizing the
         # device stream buffer.
         self._bits_hwm: int | None = None
+        # The packed P path's downloads on CUDA (_dispatch_packed): pinned
+        # rings for the bit counts and the int64 stream words, and a side
+        # stream for the words, made at the first chunk.
+        self._pinned_bits = _PinnedRing(torch.int64)
+        self._pinned_words = _PinnedRing(torch.int64)
+        self._copy_stream = None
         # CBR state: virtual buffer + complexity model (bits*qstep EWMA).
         target = cfg.bitrate / max(cfg.framerate, 1)
         self._rc_target = target
@@ -417,28 +463,65 @@ class EncoderSession:
 
     def _dispatch_packed(self, ys_d, us_d, vs_d, ys, us, vs, k: int):
         """Dispatch one P chunk with on-device packing; returns the deferred
-        finisher that downloads the streams and assembles the AUs."""
+        finisher that downloads the streams and assembles the AUs.
+
+        On CUDA the chunk's bit counts are copied to pinned memory behind
+        its launches and an event recorded after them, so the finisher,
+        which runs after the next chunk's dispatch, waits for this chunk
+        alone, and its stream words come down on a side stream while the
+        device runs the next chunk."""
         cfg = self.cfg
         enc = self._frame_encoder
         prev_recon = self.recon
         cap = self._device_cap()
+        cuda = self.device.type == "cuda"
         with span("enc.p.dispatch"):
             streams_d, bits_d, recon = enc.encode_pframes_packed_dev(
                 ys_d, us_d, vs_d, prev_recon, cfg.qp, deblock=cfg.deblock,
                 cap=cap)
+            if cuda:
+                if self._copy_stream is None:
+                    self._copy_stream = torch.cuda.Stream(self.device)
+                # Chunk i's slots come back to chunk i+2, whose dispatch
+                # follows chunk i's finisher (depth-2 pipeline).
+                bits_h = self._pinned_bits.take(k)[:k]
+                words_h = self._pinned_words.take(k * cap)
+                bits_h.copy_(bits_d, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record(torch.cuda.current_stream(self.device))
         self.recon = tuple(recon)
         frame_base = self.frame_idx
         self.frame_idx += k
 
+        def download():
+            """The bit counts and, within the cap, the used stream words
+            as uint32 on the host (None past the cap)."""
+            if cuda:
+                wait_for_chunk(done)
+                bits = bits_h.numpy()
+            else:
+                bits = bits_d.cpu().numpy()
+            if int(bits.max()) > cap * 32:
+                return bits, None
+            nw = stream_prefix_words(int(bits.max()), cap)
+            if not cuda:
+                return bits, streams_d[:, :nw].cpu().numpy().astype(
+                    np.uint32)
+            words = words_h[: k * nw].view(k, nw)
+            copy = self._copy_stream
+            copy.wait_event(done)
+            streams_d.record_stream(copy)
+            with torch.cuda.stream(copy):
+                words.copy_(streams_d[:, :nw], non_blocking=True)
+            copied = torch.cuda.Event()
+            copied.record(copy)
+            copied.synchronize()
+            return bits, words.numpy().astype(np.uint32)
+
         def finish() -> list[bytes]:
             with span("enc.p.finish"):
                 with span("enc.p.download"):
-                    bits = bits_d.cpu().numpy()
-                    streams_np = None
-                    if int(bits.max()) <= cap * 32:
-                        nw = stream_prefix_words(int(bits.max()), cap)
-                        streams_np = streams_d[:, :nw].cpu().numpy().astype(
-                            np.uint32)
+                    bits, streams_np = download()
                 cap_eff = cap
                 if streams_np is None and cap < enc.cap_words:
                     # Adaptive cap overflowed: retry on the device at the

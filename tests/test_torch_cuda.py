@@ -177,6 +177,36 @@ def test_session_on_cuda_matches_cpu(cuda_device, entropy):
         assert torch.equal(a, b)
 
 
+def test_staged_download_waits_for_its_own_chunk(cuda_device):
+    # A chunk's finisher returns its AUs while the work enqueued after the
+    # next chunk's dispatch (a 200 ms sleep) still runs: its download waits
+    # for its own chunk only. Before that, four chunks through
+    # encode_frames_staged take each pinned ring slot twice.
+    from media_tpu_torch.pipeline import codec
+
+    frames = _clip(72, 40, 13, seed=2)
+    kw = dict(width=72, height=40, qp=28, gop_size=30)
+    cpu = EncoderSession(EncoderConfig(**kw), device="cpu")
+    want = [cpu.encode_frame(f) for f in frames]
+    s = EncoderSession(EncoderConfig(**kw), device=cuda_device)
+    s.PIPELINE_CHUNK = 2
+    got = [s.encode_frame(frames[0])]
+    chunks = s.upload_frames(frames[1:])
+    counts = codec.wait_for_chunk
+    before = counts.ready + counts.waited
+    got += s.encode_frames_staged(chunks[:4])
+    first = s._dispatch_packed(*chunks[4])
+    second = s._dispatch_packed(*chunks[5])
+    torch.cuda._sleep(400_000_000)  # about 200 ms at the highest SM clock
+    slept = torch.cuda.Event()
+    slept.record()
+    got += first()
+    assert not slept.query()
+    got += second()
+    assert got == want
+    assert counts.ready + counts.waited - before == 6
+
+
 @pytest.mark.parametrize("kernel", ["frame", "wave"])
 def test_decode_on_cuda_matches_cpu(cuda_device, kernel):
     frames = _clip(72, 40, 4)

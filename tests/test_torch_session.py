@@ -124,6 +124,41 @@ def test_overflow_retry_and_host_fallback(jax_gop, monkeypatch):
         aus + more)
 
 
+# Five chunks of K distinct frames after the IDR.
+LONG = clip(1 + 5 * K, seed=1)
+
+
+@pytest.mark.parametrize("overflow", [False, True])
+def test_staged_chunks_match_encode_frame(monkeypatch, overflow):
+    # encode_frames_staged over five chunks (on a card, each pinned ring
+    # slot is taken twice or more) gives encode_frame's AUs. With overflow,
+    # the third chunk's adaptive cap is one word: its finisher, which runs
+    # after the fourth chunk's dispatch, retries it at the full budget.
+    ref = port_session(entropy_mode="device")
+    want = [ref.encode_frame(b) for b in LONG]
+    s = port_session(entropy_mode="device")
+    got = [s.encode_frame(LONG[0])]
+    chunks = s.upload_frames(LONG[1:])
+    assert len(chunks) == 5
+    caps, retries = [], []
+    real_cap = s._device_cap
+    real_retry = tenc.FrameEncoder.encode_pframes_packed
+
+    def device_cap():
+        caps.append(real_cap())
+        return 1 if overflow and len(caps) == 3 else caps[-1]
+
+    def retry(*a, **kw):
+        retries.append(len(caps))
+        return real_retry(*a, **kw)
+
+    monkeypatch.setattr(s, "_device_cap", device_cap)
+    monkeypatch.setattr(tenc.FrameEncoder, "encode_pframes_packed", retry)
+    got += s.encode_frames_staged(chunks)
+    assert got == want
+    assert retries == ([4] if overflow else [])
+
+
 def test_cuda_device_raises_without_cuda():
     if torch.cuda.is_available():
         pytest.skip("this host has CUDA")
