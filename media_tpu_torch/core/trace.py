@@ -26,7 +26,14 @@ The spans, by name:
   next chunk's kernels; on other devices, the copies of the bit counts and
   stream words, with the wait for every kernel enqueued before them.
 - `enc.p.assemble`: the chunk's access units from the downloaded words:
-  slice headers, `merge_slice_data`, `wrap_nal`, the AUD.
+  slice headers, `merge_slice_data`, `wrap_nal`, the AUD; with CABAC, the
+  transcode below and the header, alignment and NAL around it.
+- `enc.p.transcode`: one P slice's device CAVLC pack re-coded as CABAC
+  (`EncoderSession._cabac_au_from_cavlc_stream`): the C++
+  `transcode_pslice_native`, or the Python parse and recode where it
+  refuses. One a P frame; inside `enc.p.assemble` on the constant-QP
+  packed path, and in the CBR + CABAC finisher, which has no span of its
+  own.
 - `enc.idr.launch`: an IDR's planes uploaded and cast, the intra wavefront
   and the IDR's deblocking enqueued (`FrameEncoder.encode_iframe`).
 - `enc.idr.download`: the IDR's symbol arrays copied to the host, with the
@@ -44,6 +51,9 @@ The counters beside them, in the port's `.launches` idiom:
 - `native.write_pslice_native.calls`: calls of the C++ CAVLC P-slice
   writer. On the staged path each is a P frame that the device packer could
   not take.
+- `native.fallbacks["transcode_pslice_native"]`: P slices the C++
+  transcoder refused, each then re-coded by the Python parse and recode
+  inside its `enc.p.transcode`.
 - `pipeline.codec.wait_for_chunk.ready` and `.waited`: CUDA chunks of the
   packed P path whose completion event had fired when their `enc.p.download`
   began (the host set the pace, and assembly overlapped the device), and

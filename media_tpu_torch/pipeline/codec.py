@@ -7,8 +7,9 @@ across or within slices; CAVLC or CABAC; constant QP or the CBR rate loop on
 the device (with per-MB QP under adaptive_qp); the IBPBP B-GOP; lossless
 I_PCM. CBR + CABAC, the operating point of the reference, runs the device
 loop on CAVLC bit counts and transcodes each slice to CABAC on the host
-(native/). The AU bytes equal the JAX package's for the same input. The
-session runs on the GPU unless the caller passes device="cpu".
+(native/); single-slice CABAC at constant QP takes the device pack and the
+same transcode. The AU bytes equal the JAX package's for the same input.
+The session runs on the GPU unless the caller passes device="cpu".
 """
 
 from __future__ import annotations
@@ -347,8 +348,8 @@ class EncoderSession:
         """Encode P-frame chunks pre-staged by upload_frames. The bitstream
         equals encode_frames' on the same frames. The session must be
         mid-GOP (a reference exists and no IDR falls inside the run), and
-        its configuration single-slice, CAVLC at constant QP or CABAC under
-        CBR."""
+        its configuration single-slice, at constant QP (CAVLC, or CABAC
+        transcoded from the device's CAVLC pack) or CABAC under CBR."""
         cfg = self.cfg
         if self.recon is None:
             raise RuntimeError("encode_frames_staged needs a reference frame "
@@ -359,9 +360,10 @@ class EncoderSession:
             raise RuntimeError("IDR due inside a staged run; use encode_frames")
         cbr_cabac = cfg.cabac and cfg.rc_mode == "cbr"
         if not (len(self.slice_rows) == 1
-                and ((not cfg.cabac and cfg.rc_mode == "cq") or cbr_cabac)):
+                and (cfg.rc_mode == "cq" or cbr_cabac)):
             raise RuntimeError(
-                "staged path requires single-slice CAVLC-CQ or CABAC-CBR")
+                "staged path requires single-slice CAVLC-CQ or CABAC-CBR "
+                "or CABAC-CQ")
         out: list[bytes] = []
         pending: list = []
         for ys_d, us_d, vs_d, ys, us, vs, k in chunks:
@@ -441,8 +443,9 @@ class EncoderSession:
             use_device = (cfg.entropy_mode == "device"
                           or (cfg.entropy_mode == "auto"
                               and self.device.type != "cpu")) and (
-                                  len(self.slice_rows) == 1 and not cfg.cabac)
-            # (the device packer codes one CAVLC slice per frame)
+                                  len(self.slice_rows) == 1)
+            # (the device packer codes one CAVLC slice per frame; with
+            # CABAC the finisher transcodes it)
             if not use_device:
                 drain(0)
                 host = self._stack_host(planes[i : i + k])
@@ -463,7 +466,8 @@ class EncoderSession:
 
     def _dispatch_packed(self, ys_d, us_d, vs_d, ys, us, vs, k: int):
         """Dispatch one P chunk with on-device packing; returns the deferred
-        finisher that downloads the streams and assembles the AUs.
+        finisher that downloads the streams and assembles the AUs (with
+        CABAC, each transcoded from its CAVLC pack).
 
         On CUDA the chunk's bit counts are copied to pinned memory behind
         its launches and an event recorded after them, so the finisher,
@@ -534,6 +538,10 @@ class EncoderSession:
                 self._note_bits(int(bits.max()))
                 if int(bits.max()) <= cap_eff * 32:
                     with span("enc.p.assemble"):
+                        if cfg.cabac:
+                            return [self._cabac_au_from_cavlc_stream(
+                                streams_np[j], int(bits[j]), cfg.qp,
+                                frame_base + j) for j in range(k)]
                         return [self._pslice_au_packed(
                             streams_np[j], int(bits[j]),
                             frame_idx=frame_base + j) for j in range(k)]
@@ -634,16 +642,19 @@ class EncoderSession:
         data = np.asarray(stream_words, dtype=np.uint32).byteswap().tobytes()
         R = self.slice_rows[0][1] - self.slice_rows[0][0]
         C = self.sps.pic_width_in_mbs
-        payload = native.transcode_pslice_native(
-            data, total_bits, 0, R, C, qp,
-            cabac_init_idc=self.cfg.cabac_init_idc) if self._native else None
-        if payload is None:
-            sym = parse_pslice_symbols(BitReader(data), R, C, slice_qp=qp)
-            payload = cabac_slice.write_pslice_cabac(
-                sym["mv"], sym["luma_levels"], sym["cdc_levels"],
-                sym["cac_levels"], qp,
-                cabac_init_idc=self.cfg.cabac_init_idc,
-                qp_map=sym["qp_map"])
+        with span("enc.p.transcode"):
+            payload = None
+            if self._native:
+                payload = native.transcode_pslice_native(
+                    data, total_bits, 0, R, C, qp,
+                    cabac_init_idc=self.cfg.cabac_init_idc)
+            if payload is None:
+                sym = parse_pslice_symbols(BitReader(data), R, C, slice_qp=qp)
+                payload = cabac_slice.write_pslice_cabac(
+                    sym["mv"], sym["luma_levels"], sym["cdc_levels"],
+                    sym["cac_levels"], qp,
+                    cabac_init_idc=self.cfg.cabac_init_idc,
+                    qp_map=sym["qp_map"])
         bw = self._pslice_header_writer(qp, frame_idx=frame_idx)
         while not bw.byte_aligned():
             bw.u(1, 1)  # cabac_alignment_one_bit (7.3.4)

@@ -20,6 +20,7 @@ import types
 
 import numpy as np
 import pytest
+import torch
 
 import chip_smoke as cs
 from media_tpu.entropy import cabac_contexts as jctx
@@ -151,15 +152,15 @@ def test_islice_cabac_equals_jax_and_round_trips(seed, density):
 # ------------------------------------------------- sessions and the decoder
 
 
-def clip(n, seed=0):
+def clip(n, seed=0, w=W, h=H):
     """Textured pan with a moving bright block (I420 buffers)."""
     rng = np.random.default_rng(seed)
-    big = rng.integers(0, 256, (H + 48, W + 48)).astype(np.float64)
+    big = rng.integers(0, 256, (h + 48, w + 48)).astype(np.float64)
     for _ in range(2):
         big = (big + np.roll(big, 1, 0) + np.roll(big, 1, 1)) / 3
     out = []
     for t in range(n):
-        y = big[2 * t : 2 * t + H, 3 * t : 3 * t + W].copy()
+        y = big[2 * t : 2 * t + h, 3 * t : 3 * t + w].copy()
         y[10 : 22, 5 + 5 * t : 17 + 5 * t] = 235
         y = (y + rng.normal(0, 1.5, y.shape)).round().clip(0, 255).astype(
             np.uint8)
@@ -217,20 +218,31 @@ def snapshot(s) -> dict:
     }
 
 
+_JAX_RUNS: dict = {}
+
+
+def run_jax(name):
+    """The JAX session's run of a configuration, made once a process."""
+    if name not in _JAX_RUNS:
+        with pytest.MonkeyPatch.context() as mp:
+            # One deblocking wave per scan step: same bytes, smaller
+            # programs.
+            mp.setenv("MEDIA_TPU_DEBLOCK_UNROLL", "1")
+            s = make(JaxSession, name)
+            phases, rec, state = drive(s, name)
+            dec = JaxDecoder()
+            decoded = [f for au in sum(phases, [])
+                       for f in dec.decode_annexb(au)]
+            planes = [tuple(np.asarray(getattr(f, p)) for p in "yuv")
+                      for f in decoded]
+        _JAX_RUNS[name] = types.SimpleNamespace(
+            name=name, phases=phases, rec=rec, state=state, planes=planes)
+    return _JAX_RUNS[name]
+
+
 @pytest.fixture(scope="module", params=list(CONFIGS))
 def jax_run(request):
-    name = request.param
-    with pytest.MonkeyPatch.context() as mp:
-        # One deblocking wave per scan step: same bytes, smaller programs.
-        mp.setenv("MEDIA_TPU_DEBLOCK_UNROLL", "1")
-        s = make(JaxSession, name)
-        phases, rec, state = drive(s, name)
-        dec = JaxDecoder()
-        decoded = [f for au in sum(phases, []) for f in dec.decode_annexb(au)]
-        planes = [tuple(np.asarray(getattr(f, p)) for p in "yuv")
-                  for f in decoded]
-    return types.SimpleNamespace(name=name, phases=phases, rec=rec,
-                                 state=state, planes=planes)
+    return run_jax(request.param)
 
 
 def assert_rate_records_close(got: dict, want: dict, target: float):
@@ -336,9 +348,84 @@ def test_decoder_equals_jax_decoder_and_encoder_recon(jax_run):
         np.testing.assert_array_equal(g.v, f.v)
 
 
-def test_staged_entry_refuses_cabac_at_constant_qp():
-    s = make(EncoderSession, "cq_cabac", device="cpu")
-    s.encode_frame(FRAMES[0])
-    chunks = s.upload_frames(FRAMES[1:3])
-    with pytest.raises(RuntimeError, match="staged path requires"):
-        s.encode_frames_staged(chunks)
+def cq_device(slices=1, w=W, h=H, **kw):
+    """The cq_cabac configuration with P-slice entropy on the device: the
+    device's CAVLC pack, transcoded to CABAC on the host."""
+    s = EncoderSession(EncoderConfig(
+        width=w, height=h, qp=30, gop_size=30, framerate=30,
+        num_slices=slices, entropy_mode="device", **CONFIGS["cq_cabac"]),
+        device="cpu", **kw)
+    s.PIPELINE_CHUNK = CHUNK
+    return s
+
+
+@pytest.mark.parametrize("slices", [1, 4],
+                         ids=["one_slice_equals_jax", "four_slices_refused"])
+def test_staged_entry_refuses_cabac_at_constant_qp(slices):
+    """One slice: the staged entry codes CABAC at constant QP through the
+    device pack and the transcode, as do the fed entry's device route and
+    the per-frame entry, to the JAX session's AUs (whose encode_frames codes
+    these frames on the host). Four slices: still refused."""
+    s = cq_device(slices)
+    got = [s.encode_frame(FRAMES[0])]
+    if slices > 1:
+        with pytest.raises(RuntimeError, match="staged path requires"):
+            s.encode_frames_staged(s.upload_frames(FRAMES[1:3]))
+        return
+    before = sum(native.fallbacks.values())
+    got += s.encode_frames(FRAMES[1:5])
+    got += s.encode_frames_staged(s.upload_frames(FRAMES[5:9]))
+    got.append(s.encode_frame(FRAMES[9]))
+    assert got == sum(run_jax("cq_cabac").phases, [])
+    assert sum(native.fallbacks.values()) == before
+    host = make(EncoderSession, "cq_cabac", device="cpu")
+    host.encode_frame(FRAMES[0])
+    host.encode_frames(FRAMES[1:10])
+    for a, b in zip(s.recon, host.recon):
+        assert torch.equal(a, b)
+
+
+def _refuse_transcode(*a, **kw):
+    native.fallbacks["transcode_pslice_native"] += 1
+
+
+@pytest.mark.parametrize("w,h,case", [
+    (W, H, "packed"), (176, 144, "packed"), (W, H, "cap_overflow"),
+    (W, H, "transcoder_refuses")])
+def test_cabac_cq_device_routes_equal_encode_frame_and_host(w, h, case,
+                                                           monkeypatch):
+    """The fed and staged device routes of single-slice CABAC at constant
+    QP against per-frame encode_frame and the host route: the same AUs and
+    planes; the device routes also where a 1-word stream cap overflows
+    (the chunk is packed again at the full budget) and where the C++
+    transcoder refuses every slice (the Python parse and recode, each
+    refusal counted). At 176x144, whose plain deblocking is dear on the
+    CPU, the staged route alone against encode_frame."""
+    small = w == W
+    frames = clip(5 if small else 4, seed=3, w=w, h=h)
+    one = cq_device(w=w, h=h)
+    want = [one.encode_frame(f) for f in frames]
+    routes = {"staged": cq_device(w=w, h=h)}
+    if small:
+        routes["fed"] = cq_device(w=w, h=h)
+    if small and case == "packed":
+        routes["host"] = cq_device(w=w, h=h)
+        routes["host"].cfg.entropy_mode = "host"
+    if case == "cap_overflow":
+        for s in routes.values():
+            monkeypatch.setattr(s, "_device_cap", lambda: 1)
+    if case == "transcoder_refuses":
+        monkeypatch.setattr(native, "transcode_pslice_native",
+                            _refuse_transcode)
+    before = native.fallbacks["transcode_pslice_native"]
+    for name, s in routes.items():
+        got = [s.encode_frame(frames[0])]
+        if name == "staged":
+            got += s.encode_frames_staged(s.upload_frames(frames[1:]))
+        else:
+            got += s.encode_frames(frames[1:])
+        assert got == want, name
+        for a, b in zip(s.recon, one.recon):
+            assert torch.equal(a, b), name
+    refused = native.fallbacks["transcode_pslice_native"] - before
+    assert refused == (2 * 4 if case == "transcoder_refuses" else 0)

@@ -207,6 +207,35 @@ def test_staged_download_waits_for_its_own_chunk(cuda_device):
     assert counts.ready + counts.waited - before == 6
 
 
+def test_staged_cabac_cq_1080p_on_cuda_matches_host_route(cuda_device):
+    """1080p Main-profile CABAC at constant QP with I_4x4 IDRs, one slice:
+    the staged route on the card (the device's CAVLC pack transcoded to
+    CABAC on the host) gives the AUs and planes of per-frame encode_frame,
+    which codes each P frame's downloaded symbols with the host's CABAC
+    writer, and of the same route on the CPU at 176x144."""
+    kw = dict(qp=32, gop_size=300, level_idc=41, profile="main", cabac=True,
+              i4x4=True, entropy_mode="device")
+    for (w, h), devices in (((1920, 1080), (cuda_device,)),
+                            ((176, 144), (cuda_device, "cpu"))):
+        frames = _clip(w, h, 5, seed=5)
+        out, recon = [], []
+        for device in devices:
+            one = EncoderSession(EncoderConfig(width=w, height=h, **kw),
+                                 device=device)
+            out.append([one.encode_frame(f) for f in frames])
+            recon.append([p.cpu() for p in one.recon])
+        s = EncoderSession(EncoderConfig(width=w, height=h, **kw),
+                           device=cuda_device)
+        s.PIPELINE_CHUNK = 2
+        out.append([s.encode_frame(frames[0])] + s.encode_frames_staged(
+            s.upload_frames(frames[1:])))
+        recon.append([p.cpu() for p in s.recon])
+        for aus, planes in zip(out[1:], recon[1:]):
+            assert aus == out[0]
+            for a, b in zip(planes, recon[0]):
+                assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("kernel", ["frame", "wave"])
 def test_decode_on_cuda_matches_cpu(cuda_device, kernel):
     frames = _clip(72, 40, 4)

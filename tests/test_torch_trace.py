@@ -63,11 +63,12 @@ def _profiled():
         events += autograd_profiler._disable_profiler().events()
 
 
-def _encode(traced: bool) -> tuple[list[bytes], list, int]:
+def _encode(traced: bool, **cfg) -> tuple[list[bytes], list, int]:
     """IDR + N_P staged P frames; (AUs, the trace's host events as (name,
-    start, end), the C++ P writer's calls)."""
+    start, end), the C++ P writer's calls). cfg: more EncoderConfig
+    fields."""
     frames = _frames(1 + N_P)
-    sess = EncoderSession(EncoderConfig(width=W, height=H, qp=30),
+    sess = EncoderSession(EncoderConfig(width=W, height=H, qp=30, **cfg),
                           device="cpu")
     sess.PIPELINE_CHUNK = CHUNK
     chunks = sess.upload_frames(frames[1:])
@@ -148,3 +149,26 @@ def test_host_pslice_writer_counter(runs, monkeypatch, budget):
         aus, _, calls = _encode(traced=False)
         assert aus == want
     assert calls == {"packed": 0, "host": N_P}[budget]
+
+
+CABAC_CQ = dict(cabac=True, entropy_mode="device")
+
+
+@pytest.fixture(scope="module")
+def cabac_runs():
+    """runs() for single-slice CABAC at constant QP: the device's CAVLC
+    pack, transcoded on the host."""
+    with mock.patch.object(torch.profiler, "record_function", _refuse):
+        untraced = _encode(traced=False, **CABAC_CQ)
+    traced = _encode(traced=True, **CABAC_CQ)
+    return untraced, traced
+
+
+def test_one_transcode_a_pframe_inside_its_assembly(cabac_runs):
+    (aus, untraced, _), (traced_aus, events, _) = cabac_runs
+    assert untraced == [] and traced_aus == aus and len(aus) == 1 + N_P
+    assemble = _spans(events, "enc.p.assemble")
+    transcode = _spans(events, "enc.p.transcode")
+    assert len(assemble) == N_P // CHUNK and len(transcode) == N_P
+    for a, b in transcode:
+        assert any(fa <= a and b <= fb for fa, fb in assemble)
