@@ -1,6 +1,8 @@
 // CABAC slice-data packer (C++): byte-exact mirror of the Python coder in
 // media_tpu_torch/entropy/cabac_slice.py (which mirrors Rec. ITU-T H.264 9.3).
-// A copy of the JAX package's csrc/cabac_pack.cpp.
+// The slice writers are a copy of the JAX package's csrc/cabac_pack.cpp;
+// the engine under them (Enc) writes a byte at a time where that one writes
+// a bit at a time, and the bytes are the same.
 //
 // The Python implementation is the tested oracle; tests force this packer
 // byte-identical. Context-init (m, n) tables are passed in from Python so
@@ -40,9 +42,26 @@ const int CAT_OFFSET_SIG[5] = {0, 15, 29, 44, 47};
 const int CAT_OFFSET_ABS[5] = {0, 10, 20, 30, 39};
 const int CAT_MAXCOEFF[5] = {16, 15, 16, 4, 15};
 
+// Next packed state (pStateIdx << 1 | valMPS) after coding `bin` in packed
+// state s (Table 9-45; the MPS path saturates at 62, the LPS path swaps
+// valMPS from state 0). Built once from kTransIdxLPS.
+struct Trans {
+  uint8_t next[128][2];
+  Trans() {
+    for (int s = 0; s < 128; s++) {
+      int st = s >> 1, mps = s & 1;
+      int up = st < 62 ? st + 1 : 62;
+      int down = kTransIdxLPS[st];
+      int lps_mps = st == 0 ? 1 - mps : mps;
+      next[s][mps] = (uint8_t)(up << 1 | mps);
+      next[s][1 - mps] = (uint8_t)(down << 1 | lps_mps);
+    }
+  }
+};
+const Trans kTrans;
+
 struct Ctx {
-  int8_t state[NUM_CTX];
-  int8_t mps[NUM_CTX];
+  uint8_t st[NUM_CTX];  // pStateIdx << 1 | valMPS
   void init(int qp, const int32_t* init_mn) {
     if (qp < 0) qp = 0;
     if (qp > 51) qp = 51;
@@ -51,110 +70,110 @@ struct Ctx {
       int pre = ((m * qp) >> 4) + n;
       if (pre < 1) pre = 1;
       if (pre > 126) pre = 126;
-      mps[i] = pre > 63 ? 1 : 0;
-      state[i] = pre > 63 ? pre - 64 : 63 - pre;
+      st[i] = (uint8_t)(pre > 63 ? (pre - 64) << 1 | 1 : (63 - pre) << 1);
     }
   }
 };
 
+// The encoding engine of 9.3.4, a byte at a time. `low` keeps the 10-bit
+// window of the spec's codILow in its bits 0-9 and, above them, the bits
+// already shifted out of it and not yet written: queue + 8 of them, under
+// one carry bit. A byte goes out when 8 have gathered. A byte of 0xFF is
+// held back (`outstanding`) until the next byte shows whether a carry runs
+// through it; a carry adds 1 to the byte written before and turns the held
+// bytes into 0x00. This writes the bits of the spec's PutBit with its
+// bitsOutstanding. The queue starts at -9, so the first bit shifted out,
+// which the spec drops, sits where the first byte's carry goes: in out[0],
+// a slack byte. The payload is written from out[1] and moved down by one at
+// the end, so a carry never lands before `out`.
 struct Enc {
-  uint64_t low = 0;
-  int range = 510;
-  int bits_outstanding = 0;
-  bool first_bit = true;
-  // Packed bit sink (same emitted bits as the Python mirror's list-of-bits;
-  // only the container differs): bits accumulate MSB-first in `acc`.
-  std::vector<uint8_t> bytes;
-  uint32_t acc = 0;
-  int acc_n = 0;
-  int64_t nbits = 0;
+  uint32_t low = 0;
+  uint32_t range = 510;
+  int queue = -9;
+  int64_t outstanding = 0;
+  uint8_t* base;
+  uint8_t* p;
+  uint8_t* end;
+  bool overflow = false;
 
-  inline void push_bit(uint32_t b) {
-    acc = (acc << 1) | b;
-    if (++acc_n == 8) {
-      bytes.push_back((uint8_t)acc);
-      acc = 0;
-      acc_n = 0;
-    }
-    nbits++;
+  Enc(uint8_t* out, int64_t cap) : base(out), p(out + 1), end(out + cap) {
+    if (cap < 2)
+      overflow = true;
+    else
+      out[0] = 0;
   }
 
-  void put_bit(int b) {
-    if (first_bit) {
-      first_bit = false;
-    } else {
-      push_bit((uint32_t)b);
+  inline void put_byte() {
+    if (queue < 0) return;
+    uint32_t byte = low >> (queue + 10);
+    low &= (0x400u << queue) - 1;
+    queue -= 8;
+    if ((byte & 0xFF) == 0xFF) {
+      outstanding++;
+      return;
     }
-    uint32_t inv = (uint32_t)(1 - b);
-    while (bits_outstanding > 0) {
-      push_bit(inv);
-      bits_outstanding--;
+    if (end - p <= outstanding) {  // no room: the result is -1
+      overflow = true;
+      outstanding = 0;
+      return;
     }
+    uint32_t carry = byte >> 8;
+    p[-1] += (uint8_t)carry;
+    uint8_t held = (uint8_t)(carry - 1);  // 0xFF, or 0x00 after a carry
+    for (; outstanding > 0; outstanding--) *p++ = held;
+    *p++ = (uint8_t)byte;
   }
-  void renorm() {
-    while (range < 256) {
-      if (low >= 512) {
-        put_bit(1);
-        low -= 512;
-      } else if (low < 256) {
-        put_bit(0);
-      } else {
-        low -= 256;
-        bits_outstanding++;
-      }
-      low <<= 1;
-      range <<= 1;
-    }
+  inline void shift(int n) {
+    range <<= n;
+    low <<= n;
+    queue += n;
+    put_byte();
   }
-  void encode_bin(Ctx& c, int idx, int bin) {
-    int st = c.state[idx];
-    int mps = c.mps[idx];
-    int q = (range >> 6) & 3;
-    int r_lps = kRangeTabLPS[st][q];
+  inline void renorm() { shift(__builtin_clz(range) - 23); }
+
+  inline void encode_bin(Ctx& c, int idx, int bin) {
+    uint32_t s = c.st[idx];
+    uint32_t r_lps = kRangeTabLPS[s >> 1][(range >> 6) & 3];
+    uint32_t lps = (uint32_t)bin ^ (s & 1);
     range -= r_lps;
-    if (bin != mps) {
-      low += range;
-      range = r_lps;
-      if (st == 0) c.mps[idx] = 1 - mps;
-      c.state[idx] = kTransIdxLPS[st];
-    } else {
-      c.state[idx] = st < 62 ? st + 1 : 62;
-    }
+    low += range & (0u - lps);
+    range = lps ? r_lps : range;
+    c.st[idx] = kTrans.next[s][bin];
     renorm();
   }
-  void encode_bypass(int bin) {
-    low <<= 1;
-    if (bin) low += range;
-    if (low >= 1024) {
-      put_bit(1);
-      low -= 1024;
-    } else if (low < 512) {
-      put_bit(0);
-    } else {
-      low -= 512;
-      bits_outstanding++;
-    }
+  inline void encode_bypass(int bin) {
+    low = (low << 1) + (range & (0u - (uint32_t)bin));
+    queue += 1;
+    put_byte();
   }
+  // bin 1 ends the slice (9.3.4.5): the spec's final PutBit of codILow's
+  // bit 9, then its bit 8, then a 1 that is the RBSP stop bit, padded with
+  // zeros to the byte; the held 0xFF bytes are written last.
   void encode_terminate(int bin) {
     range -= 2;
-    if (bin) {
-      low += range;
-      range = 2;
+    if (!bin) {
       renorm();
-      put_bit((low >> 9) & 1);
-      push_bit((low >> 8) & 1);
-      push_bit(1);  // rbsp stop bit
+      return;
+    }
+    low += range;
+    range = 2;
+    shift(7);
+    low = (low & ~0x7Fu) | 0x80;  // bits 9, 8 kept; bit 7 the stop bit
+    shift(3);
+    if (queue > -8) shift(-queue);  // the last byte, zero-padded
+    if (end - p < outstanding) {
+      overflow = true;
     } else {
-      renorm();
+      for (; outstanding > 0; outstanding--) *p++ = 0xFF;
     }
   }
-  int64_t get_bytes(uint8_t* out, int64_t cap) const {
-    int64_t nbytes = (nbits + 7) / 8;
-    if (nbytes > cap) return -1;
-    std::memcpy(out, bytes.data(), bytes.size());
-    if (acc_n)  // final partial byte, left-aligned
-      out[bytes.size()] = (uint8_t)(acc << (8 - acc_n));
-    return nbytes;
+  // Moves the payload to out[0] and returns its length, or -1 when it and
+  // the slack byte did not fit in cap.
+  int64_t get_bytes() {
+    if (overflow) return -1;
+    int64_t n = p - (base + 1);
+    std::memmove(base, base + 1, (size_t)n);
+    return n;
   }
 };
 
@@ -415,7 +434,7 @@ extern "C" int64_t mtpu_cabac_write_slice_p(
     const int32_t* qp_map, uint8_t* out, int64_t cap) {
   Ctx ctx;
   ctx.init(qp, init_mn);
-  Enc e;
+  Enc e(out, cap);
   CbfState st(R, C);
   std::vector<int8_t> skip_map((size_t)R * C, 0);
   std::vector<int32_t> cbp_map((size_t)R * C, -1);
@@ -540,7 +559,35 @@ extern "C" int64_t mtpu_cabac_write_slice_p(
       e.encode_terminate(last_mb ? 1 : 0);
     }
   }
-  return e.get_bytes(out, cap);
+  return e.get_bytes();
+}
+
+// mtpu_cabac_engine_bins: the engine alone, for tests. Codes n bins, each
+// a regular bin of context ctx_idx[i] (kinds[i] 0), a bypass bin (1) or a
+// terminate bin of value 0 (2), with the contexts set from init_mn at qp,
+// then the terminate bin of value 1 that ends a slice. Returns the bytes
+// written to out, -1 when cap is too small, -2 for a bad kind or context.
+extern "C" int64_t mtpu_cabac_engine_bins(const int32_t* ctx_idx,
+                                          const int32_t* bins,
+                                          const int32_t* kinds, int64_t n,
+                                          int qp, const int32_t* init_mn,
+                                          uint8_t* out, int64_t cap) {
+  Ctx ctx;
+  ctx.init(qp, init_mn);
+  Enc e(out, cap);
+  for (int64_t i = 0; i < n; i++) {
+    int bin = bins[i] ? 1 : 0;
+    if (kinds[i] == 0 && ctx_idx[i] >= 0 && ctx_idx[i] < NUM_CTX)
+      e.encode_bin(ctx, ctx_idx[i], bin);
+    else if (kinds[i] == 1)
+      e.encode_bypass(bin);
+    else if (kinds[i] == 2 && !bin)
+      e.encode_terminate(0);
+    else
+      return -2;
+  }
+  e.encode_terminate(1);
+  return e.get_bytes();
 }
 
 constexpr int I4_PRED_FLAG = 68;
@@ -556,7 +603,7 @@ extern "C" int64_t mtpu_cabac_write_slice_i(
     int R, int C, int qp, const int32_t* init_mn, uint8_t* out, int64_t cap) {
   Ctx ctx;
   ctx.init(qp, init_mn);
-  Enc e;
+  Enc e(out, cap);
   CbfState st(R, C);
   st.intra = 1;  // I slice: edge condTermFlag = 1 (9.3.3.1.1.9)
   std::vector<int32_t> cm_map((size_t)R * C, 0);
@@ -702,5 +749,5 @@ extern "C" int64_t mtpu_cabac_write_slice_i(
       e.encode_terminate(last_mb ? 1 : 0);
     }
   }
-  return e.get_bytes(out, cap);
+  return e.get_bytes();
 }

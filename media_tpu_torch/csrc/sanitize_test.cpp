@@ -8,7 +8,10 @@
 // exported hot path under AddressSanitizer + UBSan:
 //   CAVLC write -> parse round trip, CABAC P write -> parse (with and
 //   without a per-MB QP map), CABAC I write -> parse (I_16x16 + I_4x4),
-//   CAVLC -> CABAC transcode -> parse, RBSP escaping.
+//   CAVLC -> CABAC transcode -> parse (also at 1080p, 68 x 120 MBs), RBSP
+//   escaping, and the CABAC engine alone (mtpu_cabac_engine_bins) into
+//   buffers of exactly the size it needs and smaller, so that a carry into
+//   the byte before the first, or a byte past the end, is caught.
 //
 // Build + run:  make sanitize-torch
 // (g++ -fsanitize=address,undefined over the port's four TUs + this main.)
@@ -60,6 +63,10 @@ int64_t mtpu_transcode_pslice(const uint8_t* data, int64_t nbits,
                               int64_t cap);
 int64_t mtpu_escape_rbsp(const uint8_t* in, int64_t n, uint8_t* out,
                          int64_t cap);
+int64_t mtpu_cabac_engine_bins(const int32_t* ctx_idx, const int32_t* bins,
+                               const int32_t* kinds, int64_t n, int qp,
+                               const int32_t* init_mn, uint8_t* out,
+                               int64_t cap);
 }
 
 namespace {
@@ -252,6 +259,51 @@ void roundtrip_escape() {
   CHECK(back == raw);
 }
 
+// Streams of every kind of bin, long bypass runs of 1s among them. Each is
+// coded into a heap buffer of exactly the payload plus the slack byte (the
+// same bytes), of the payload alone and of fewer bytes (-1, nothing written
+// outside the buffer).
+void engine_bins() {
+  std::vector<int32_t> init((size_t)460 * 2);
+  for (int i = 0; i < 460; i++) {
+    init[i * 2] = rnd(-20, 20);
+    init[i * 2 + 1] = rnd(20, 110);
+  }
+  for (int trial = 0; trial < 200; trial++) {
+    int n = trial < 40 ? trial % 21 : rnd(0, 3000);
+    std::vector<int32_t> ctx((size_t)n), bins((size_t)n), kinds((size_t)n);
+    int ones_from = rnd(0, n), ones_to = rnd(ones_from, n);
+    for (int i = 0; i < n; i++) {
+      int k = rnd(0, 9);
+      kinds[i] = k < 6 ? 0 : (k < 9 ? 1 : 2);
+      ctx[i] = rnd(0, 459);
+      bins[i] = kinds[i] == 2 ? 0 : rnd(0, 1);
+      if (i >= ones_from && i < ones_to) {
+        kinds[i] = 1;
+        bins[i] = 1;
+      }
+    }
+    int qp = rnd(0, 51);
+    std::vector<uint8_t> big((size_t)n + 64);
+    int64_t len = mtpu_cabac_engine_bins(ctx.data(), bins.data(), kinds.data(),
+                                         n, qp, init.data(), big.data(),
+                                         (int64_t)big.size());
+    CHECK(len > 0);
+    for (int64_t cap : {len + 1, len, len / 2, (int64_t)1, (int64_t)0}) {
+      uint8_t* exact = new uint8_t[cap > 0 ? cap : 1];
+      int64_t got = mtpu_cabac_engine_bins(ctx.data(), bins.data(),
+                                           kinds.data(), n, qp, init.data(),
+                                           exact, cap);
+      if (cap > len) {
+        CHECK(got == len && std::memcmp(exact, big.data(), len) == 0);
+      } else {
+        CHECK(got == -1);
+      }
+      delete[] exact;
+    }
+  }
+}
+
 }  // namespace
 
 int main() {
@@ -263,6 +315,9 @@ int main() {
     roundtrip_cabac_i(R, C, qp);
   }
   roundtrip_escape();
+  engine_bins();
+  // The benchmark's 1080p picture through the transcode.
+  roundtrip_cavlc(68, 120, 32);
   // A width-1 picture exercises the single-neighbor MV prediction rule.
   roundtrip_cavlc(5, 1, 28);
   roundtrip_cabac_p(5, 1, 28, false);

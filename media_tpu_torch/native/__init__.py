@@ -44,7 +44,8 @@ CXX_FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++17")
 SYMBOLS = ("mtpu_write_slice_i", "mtpu_write_slice_p", "mtpu_escape_rbsp",
            "mtpu_parse_slice_p", "mtpu_transcode_pslice",
            "mtpu_cabac_parse_slice_p", "mtpu_cabac_parse_slice_i",
-           "mtpu_cabac_write_slice_p", "mtpu_cabac_write_slice_i")
+           "mtpu_cabac_write_slice_p", "mtpu_cabac_write_slice_i",
+           "mtpu_cabac_engine_bins")
 
 # How often a C++ routine refused a slice (returned n < 0) and its caller
 # went on with the Python coder, by wrapper name.
@@ -243,6 +244,7 @@ def load() -> ctypes.CDLL:
         "mtpu_cabac_write_slice_p": [i32p] * 4 + [ci, ci, ci, i32p, i32p,
                                                   u8p, i64],
         "mtpu_cabac_write_slice_i": [i32p] * 9 + [ci, ci, ci, i32p, u8p, i64],
+        "mtpu_cabac_engine_bins": [i32p] * 3 + [i64, ci, i32p, u8p, i64],
     }
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)

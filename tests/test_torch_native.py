@@ -11,6 +11,7 @@ and the decoder give the same bytes and planes through the Python coders
 (host_coder / host_parser = "python") as through the C++ ones.
 """
 
+import ctypes
 import os
 import subprocess
 import sys
@@ -25,6 +26,9 @@ from media_tpu.core import nal as jnal
 from media_tpu_torch import native
 from media_tpu_torch.core.bitstream import BitReader, BitWriter
 from media_tpu_torch.entropy import cabac_slice
+from media_tpu_torch.entropy.cabac_contexts import ContextModels
+from media_tpu_torch.entropy.cabac_engine import CabacEncoder
+from media_tpu_torch.entropy.cabac_init_tables import INIT_MN_P
 from media_tpu_torch.native import gen_tables
 from media_tpu_torch.pipeline import slice_coder
 from media_tpu_torch.pipeline.codec import EncoderConfig, EncoderSession
@@ -229,6 +233,190 @@ def test_cavlc_pslice_parser_and_transcoder(seed, density, with_map):
     assert cabac == cabac_slice.write_pslice_cabac(
         *(oracle[k] for k in P_KEYS), 30, cabac_init_idc=1,
         qp_map=oracle["qp_map"])
+
+
+def _engine_bins(ctx_idx, bins, kinds, qp, idc, cap=None):
+    """The C++ engine alone (mtpu_cabac_engine_bins): the bins, then the
+    end-of-slice terminate bin. Bytes, or the routine's negative code."""
+    arrs = [np.ascontiguousarray(a, np.int32) for a in (ctx_idx, bins, kinds)]
+    init = np.ascontiguousarray(INIT_MN_P[idc], np.int32)
+    cap = len(arrs[1]) + 16 if cap is None else cap  # under a byte a bin
+    out = np.zeros(max(cap, 1), np.uint8)
+    i32p = ctypes.POINTER(ctypes.c_int32)
+    n = native.load().mtpu_cabac_engine_bins(
+        *(a.ctypes.data_as(i32p) for a in arrs), len(arrs[1]), qp,
+        init.ctypes.data_as(i32p),
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), cap)
+    return out[:n].tobytes() if n >= 0 else n
+
+
+def _engine_bins_python(ctx_idx, bins, kinds, qp, idc):
+    ctx = ContextModels(qp, idc, "P")
+    enc = CabacEncoder()
+    for c, b, k in zip(ctx_idx, bins, kinds):
+        if k == 0:
+            enc.encode_bin(ctx, int(c), int(b))
+        elif k == 1:
+            enc.encode_bypass(int(b))
+        else:
+            enc.encode_terminate(0)
+    enc.encode_terminate(1)
+    return enc.get_bytes()
+
+
+def _held_carry_stream(rng, runs=30, length=40):
+    """Bypass bins chosen against the spec encoder's state so that its
+    interval keeps straddling the output boundary, each bin one more
+    outstanding bit (in the byte engine, 0xFF bytes held back), and then,
+    after `length` of them, the bin that carries through them all; a few
+    regular bins between the runs."""
+    enc, models = CabacEncoder(), ContextModels(30, 1, "P")
+    bins, kinds, carried = [], [], 0
+
+    def code(kind, b):
+        bins.append(b)
+        kinds.append(kind)
+        enc.encode_bypass(b) if kind else enc.encode_bin(models, 105, b)
+
+    for _ in range(runs):
+        for _ in range(int(rng.integers(1, 20))):
+            code(0, int(rng.random() < 0.3))
+        for _ in range(4 * length):
+            low, r = 2 * enc.low, enc.range
+            if enc.bits_outstanding >= length and low + r >= 1024:
+                code(1, 1)
+                carried += 1
+                break
+            keep = [b for b in (0, 1) if 512 <= low + b * r < 1024]
+            code(1, min(keep, key=lambda b: abs(low + b * r - 768))
+                 if keep else int(rng.integers(2)))
+    assert carried >= 5
+    return (np.full(len(bins), 105), np.array(bins, np.int32),
+            np.array(kinds, np.int32))
+
+
+def _bin_stream(case, rng):
+    """(ctx_idx, bins, kinds) of one engine case at QP 30 and
+    cabac_init_idc 1; kinds 0 regular, 1 bypass, 2 terminate of value 0."""
+    n = 4000
+    ctx = rng.integers(0, 8, n) + 105  # significant_coeff_flag contexts
+    kinds = np.zeros(n, np.int32)
+    if case in ("p01", "p99"):
+        bins = rng.random(n) < (0.01 if case == "p01" else 0.99)
+    elif case == "all_mps":
+        bins = ContextModels(30, 1, "P").mps[ctx]
+    elif case == "bypass_ones":
+        kinds[8:] = 1
+        bins = np.ones(n, bool)
+        bins[:8] = rng.random(8) < 0.5
+    elif case == "held_carry":
+        return _held_carry_stream(rng)
+    else:  # mixed: every kind, terminate bins of value 0 among them
+        kinds = rng.choice([0, 1, 2], n, p=[0.6, 0.3, 0.1]).astype(np.int32)
+        bins = (rng.random(n) < 0.5) & (kinds != 2)
+    return ctx, bins.astype(np.int32), kinds
+
+
+@pytest.mark.parametrize("case", ["p01", "p99", "all_mps", "bypass_ones",
+                                  "held_carry", "mixed", "short"])
+def test_cabac_engine_equals_the_python_encoder(case):
+    """The byte-wise engine against the spec's bit-at-a-time one
+    (entropy/cabac_engine.py) on extreme probabilities, MPS runs, a run of
+    4000 bypass 1s (0xFF bytes held to the end), runs of held 0xFF bytes
+    that a carry turns to 0x00, every kind of bin mixed, and streams of 0 to
+    20 bins that end before or just after the first byte."""
+    rng = np.random.default_rng(sum(map(ord, case)))
+    if case == "short":
+        streams = []
+        for n in range(21):
+            for i in range(12):
+                kinds = rng.choice([0, 1, 2], n, p=[0.6, 0.3, 0.1])
+                bins = (rng.random(n) < 0.5) & (kinds != 2)
+                streams.append((rng.integers(0, 460, n), bins, kinds,
+                                4 * i + n % 4, i % 3))
+    else:
+        streams = [(*_bin_stream(case, rng), 30, 1)]
+    for i, (ctx, bins, kinds, qp, idc) in enumerate(streams):
+        want = _engine_bins_python(ctx, bins, kinds, qp, idc)
+        assert _engine_bins(ctx, bins, kinds, qp, idc) == want, (case, i)
+
+
+def test_cabac_engine_refuses_a_small_buffer_and_bad_bins():
+    """-1 where the payload and the slack byte before it do not fit; -2
+    for a kind it does not know, a context outside the table, or a
+    terminate bin of value 1 before the end."""
+    ctx, bins, kinds = _bin_stream("mixed", np.random.default_rng(5))
+    want = _engine_bins_python(ctx, bins, kinds, 30, 0)
+    assert _engine_bins(ctx, bins, kinds, 30, 0, cap=len(want) + 1) == want
+    for cap in (len(want), len(want) // 2, 1, 0):
+        assert _engine_bins(ctx, bins, kinds, 30, 0, cap=cap) == -1
+
+    def with_bin7(kind, c, b):
+        k2, c2, b2 = kinds.copy(), ctx.copy(), bins.copy()
+        k2[7], c2[7], b2[7] = kind, c, b
+        return _engine_bins(c2, b2, k2, 30, 0)
+
+    assert with_bin7(3, 105, 0) == -2  # no such kind
+    assert with_bin7(0, 460, 0) == -2  # no such context
+    assert with_bin7(2, 105, 1) == -2  # the slice ends before the end
+
+
+@pytest.mark.parametrize("with_map", [False, True], ids=["qp", "qp_map"])
+@pytest.mark.parametrize("density", [0.02, 0.1])
+def test_cabac_writers_at_1080p_equal_the_jax_packages(density, with_map):
+    """The benchmark's picture size (68 x 120 MBs): the P writer, the
+    transcode and the I writer with I_4x4 MBs byte for byte the JAX
+    package's C++ library (the bit-at-a-time engine), and the P slice
+    parsed back to its symbols."""
+    R8, C8, qp, idc = 68, 120, 32, int(with_map)
+    rng = np.random.default_rng(int(density * 100) + 10 * with_map)
+    sym = {"mv": rng.integers(-24, 25, (R8, C8, 2)).astype(np.int32),
+           "luma_levels": _sparse(rng, (R8, C8, 16, 16), density, 12),
+           "cdc_levels": _sparse(rng, (R8, C8, 2, 4), density, 12),
+           "cac_levels": _sparse(rng, (R8, C8, 2, 4, 15), density, 12)}
+    still = rng.random((R8, C8)) < 0.3  # skip candidates
+    for a in sym.values():
+        a[still] = 0
+    qp_map = (rng.choice([24, 28, 32, 36, 40], (R8, C8)).astype(np.int32)
+              if with_map else None)
+    args = (*(sym[k] for k in P_KEYS), qp)
+    got = native.cabac_write_pslice_native(*args, cabac_init_idc=idc,
+                                           qp_map=qp_map)
+    assert got == jnative.cabac_write_pslice_native(
+        *args, cabac_init_idc=idc, qp_map=qp_map)
+    back = native.cabac_parse_pslice_native(got, 0, R8, C8, qp, idc)
+    _same_arrays(back, sym, P_KEYS)
+    assert back["covered"] == R8 * C8
+    coded = np.any([sym[k].reshape(R8, C8, -1).any(-1) for k in P_KEYS[1:]],
+                   axis=0)
+    if with_map:
+        np.testing.assert_array_equal(back["qp_map"][coded], qp_map[coded])
+
+    bw = BitWriter()
+    if with_map:
+        slice_coder.write_pslice_mbs(bw, **sym, qp_map=qp_map, slice_qp=qp)
+        bw.rbsp_trailing_bits()
+    else:
+        native.write_pslice_native(bw, *args[:4])
+    data = bw.get_bytes()
+    cabac = native.transcode_pslice_native(data, len(data) * 8, 0, R8, C8,
+                                           qp, cabac_init_idc=idc)
+    assert cabac == jnative.transcode_pslice_native(
+        data, len(data) * 8, 0, R8, C8, qp, cabac_init_idc=idc)
+    assert with_map or cabac == got
+
+    isym = i_symbols(int(density * 100), density)
+    isym = {k: np.resize(v, (R8, C8, *v.shape[2:])) for k, v in isym.items()}
+    is_i4 = rng.random((R8, C8)) < 0.6
+    modes4 = rng.integers(0, 9, (R8, C8, 16)).astype(np.int32)
+    luma4 = _sparse(rng, (R8, C8, 16, 16), density, 20)
+    iargs = (*(isym[k] for k in I_KEYS), 28)
+    i4 = dict(is_i4=is_i4, modes4=modes4, luma4_levels=luma4)
+    igot = native.cabac_write_islice_native(*iargs, **i4)
+    assert igot == jnative.cabac_write_islice_native(*iargs, **i4)
+    iback = native.cabac_parse_islice_native(igot, 0, R8, C8, 28)
+    np.testing.assert_array_equal(iback["is_i4"], is_i4)
+    np.testing.assert_array_equal(iback["luma4_levels"][is_i4], luma4[is_i4])
 
 
 @pytest.mark.parametrize("seed", range(3))
