@@ -8,8 +8,9 @@ the two API cases of tests/test_decoder_robustness.py (flow control, the
 leftover assembly, flush-resume, BAD_PIC_SIZE with its event, recovery
 from a corrupt AU, the H.265 route, EOS), plus the hand-over to the scalar
 oracle on a B-GOP stream and on a lossless stream. The streams are the
-port's own (device="cpu"), at 64x48. The JAX VideoDecoder runs every
-scenario once (module-scoped); the port's must give the same trace
+port's own (device="cpu"), at 64x48. The JAX VideoDecoder's trace of
+every scenario is read from tests/golden_torch/ (jax_scenarios says what it
+was asked; tests/jax_golden.py); the port's must give the same trace
 (tolerance 0), and the payloads must be the encoder's recon.
 """
 
@@ -21,7 +22,7 @@ import pytest
 import torch
 
 import chip_smoke as cs
-from media_tpu import api as japi
+from jax_golden import Golden
 from media_tpu_torch import api as tapi
 from media_tpu_torch.api import decoder_api as tdec
 from media_tpu_torch.api.errors import (CodecFormat, DecoderEvent,
@@ -75,8 +76,7 @@ def _hevc_au():
     return au, tuple(np.asarray(p) for p in s.recon)
 
 
-@pytest.fixture(scope="module")
-def streams():
+def make_streams():
     # The B-GOP's B pictures are not reference pictures: the recon after
     # each AU is the last anchor's, so the payloads are checked against
     # the oracle's own decode instead.
@@ -86,6 +86,11 @@ def streams():
     out["lossless"], out["lossless_recon"] = _session_stream(2, lossless=True)
     out["hevc"], out["hevc_recon"] = _hevc_au()
     return out
+
+
+@pytest.fixture(scope="module")
+def streams():
+    return make_streams()
 
 
 # ------------------------------------------------------------ the scenarios
@@ -240,13 +245,48 @@ SCENARIOS = {f.__name__: f for f in (
     _fallback("bgop"), _fallback("lossless"))}
 
 
+# The JAX side deblocks one wave per scan step: the same planes from smaller
+# programs.
+GOLDEN = Golden(__file__, env={"MEDIA_TPU_DEBLOCK_UNROLL": "1"})
+
+
+@GOLDEN.recipe
+def jax_scenarios():
+    """Every scenario through the JAX package's VideoDecoder on the port's
+    streams (make_streams), and the streams' digest."""
+    from media_tpu import api as japi
+
+    streams = make_streams()
+    return {"streams": streams_digest(streams),
+            "traces": {name: f(japi, {}, streams)
+                       for name, f in SCENARIOS.items()}}
+
+
+def streams_digest(streams) -> str:
+    """sha256 over make_streams()'s AUs and recon planes."""
+    h = hashlib.sha256()
+
+    def feed(x):
+        if isinstance(x, bytes):
+            h.update(x)
+        elif isinstance(x, (list, tuple)):
+            for y in x:
+                feed(y)
+        else:
+            h.update(np.ascontiguousarray(x, np.uint8).tobytes())
+
+    for k in sorted(streams):
+        h.update(k.encode())
+        feed(streams[k])
+    return h.hexdigest()
+
+
 @pytest.fixture(scope="module")
 def jax_traces(streams):
-    # The JAX side deblocks one wave per scan step: the same planes from
-    # smaller programs.
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setenv("MEDIA_TPU_DEBLOCK_UNROLL", "1")
-        return {name: f(japi, {}, streams) for name, f in SCENARIOS.items()}
+    jax = GOLDEN.read(jax_scenarios)
+    assert jax["streams"] == streams_digest(streams), \
+        "the port's streams are not the recorded ones"
+    return jax["traces"]
 
 
 def payloads(trace):

@@ -6,7 +6,9 @@ Two configurations of the reference policy, `baseline` (CAVLC) and `main`
 forced keyframe before frame 3 and a parameter adjust (a new bitrate, so a
 reset) before frame 5: every return code, every AU and the encoder's QP
 after every frame equal the JAX package's, byte for byte (tolerance 0). The
-JAX side runs once per configuration (module-scoped). Then the cases of
+JAX side is read from tests/golden_torch/ (jax_run says what it was asked;
+tests/jax_golden.py); the JAX package's host helpers (_bitrate_to_qp, the
+policy, the params module) run live. Then the cases of
 tests/test_api.py's encoder classes and test_encoder_statistics_surface on
 the port (device="cpu"), and what the port keeps literally: the catch-all
 of encode_one_frame, _bitrate_to_qp, and the device rule of its entry
@@ -18,7 +20,7 @@ import pytest
 import torch
 
 import chip_smoke as cs
-from media_tpu import api as japi
+from jax_golden import Golden
 from media_tpu.api import encoder_api as jenc
 from media_tpu.core import params as jP
 from media_tpu_torch import api as tapi
@@ -35,6 +37,8 @@ FRAMES = cs.clip_i420(W, H, N)[0]
 EVENTS = {3: {"KEY_FORCE_KEYFRAME": "1"},
           5: {"KEY_BITRATE": "2000000", "KEY_PARAM_ADJUSTING": "1"}}
 CONFIGS = ("baseline", "main")
+STATS = ("input_frame_count", "encoded_bytes", "average_frame_qp",
+         "idr_req_num", "width", "height")
 
 
 def drive(api, params, profile, **kw):
@@ -60,18 +64,25 @@ def drive(api, params, profile, **kw):
                                     cfg.bitrate, cfg.profile)}
 
 
-@pytest.fixture(scope="module")
-def jax_runs():
-    # The JAX side deblocks one wave per scan step: the same bytes from
-    # smaller programs.
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setenv("MEDIA_TPU_DEBLOCK_UNROLL", "1")
-        return {p: drive(japi, jP, p) for p in CONFIGS}
+# The JAX side deblocks one wave per scan step: the same bytes from smaller
+# programs.
+GOLDEN = Golden(__file__, env={"MEDIA_TPU_DEBLOCK_UNROLL": "1"})
+
+
+@GOLDEN.recipe(cases=CONFIGS)
+def jax_run(profile):
+    """drive() through the JAX package's API; of the statistics, the
+    counters (not the clock's rates)."""
+    from media_tpu import api as japi
+
+    run = drive(japi, jP, profile)
+    run["stats"] = {k: run["stats"][k] for k in STATS}
+    return run
 
 
 @pytest.mark.parametrize("profile", CONFIGS)
-def test_api_stream_equals_jax(jax_runs, profile):
-    want = jax_runs[profile]
+def test_api_stream_equals_jax(profile):
+    want = GOLDEN.read(jax_run, profile)
     got = drive(tapi, P, profile, device="cpu")
     assert got["codes"] == want["codes"] == [0] * (N + 4)
     assert got["cfg"] == want["cfg"]
@@ -85,8 +96,7 @@ def test_api_stream_equals_jax(jax_runs, profile):
              for a in got["aus"]]
     assert [5 in t for t in types] == [True, False, False, True, False, True]
     assert types[5][:2] == [7, 8] and types[3][-1] == 5
-    for k in ("input_frame_count", "encoded_bytes", "average_frame_qp",
-              "idr_req_num", "width", "height"):
+    for k in STATS:
         assert got["stats"][k] == want["stats"][k], k
 
 

@@ -8,16 +8,19 @@ load_reference_state mid-B-GOP; lossless (all I_PCM), single- and
 multi-slice and on the all-zero frame whose bytes need emulation prevention.
 media_tpu's ReferenceDecoder decodes the port's B stream to the source order
 and the lossless stream to the exact input; the port's TpuDecoder refuses
-both as the JAX one does. The JAX side deblocks one wave per scan step (same
-bytes, smaller programs). Tolerance 0.
+both as the JAX one does. The JAX sessions and B core are read from
+tests/golden_torch/ (the recipes say what they were asked;
+tests/jax_golden.py); they deblocked one wave per scan step (same bytes,
+smaller programs). The JAX package's B-slice writer, its configuration
+checks and its decoder's refusals run live. Tolerance 0.
 """
 
 import numpy as np
 import pytest
 
+from jax_golden import Golden
 from media_tpu.core.bitstream import BitWriter as JBitWriter
 from media_tpu.pipeline import decoder_tpu as jdec
-from media_tpu.pipeline import encoder as jenc
 from media_tpu.pipeline import slice_coder as jsc
 from media_tpu.pipeline.codec import EncoderConfig as JaxConfig
 from media_tpu.pipeline.codec import EncoderSession as JaxSession
@@ -31,13 +34,7 @@ from media_tpu_torch.pipeline.codec import EncoderConfig, EncoderSession
 from media_tpu_torch.utils import yuv
 
 W, H, QP, GOP = 64, 48, 28, 4
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _small_jax_deblock():
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setenv("MEDIA_TPU_DEBLOCK_UNROLL", "1")
-        yield
+GOLDEN = Golden(__file__, env={"MEDIA_TPU_DEBLOCK_UNROLL": "1"})
 
 
 def clip(n, w=W, h=H, seed=0):
@@ -67,20 +64,30 @@ def bcfg(cls, **kw):
 # ------------------------------------------------------------------ B-GOP
 
 
+@GOLDEN.recipe(cases=[6, 7])
+def jax_bgop(n):
+    """The JAX B-GOP session's AUs of n frames in one encode_frames call,
+    and its counters after them."""
+    js = JaxSession(bcfg(JaxConfig))
+    aus = js.encode_frames(FRAMES[:n])
+    return {"aus": aus, "counters": [js._display_since_idr,
+                                     js._ref_frame_num, js.frame_idx]}
+
+
 @pytest.mark.parametrize("n", [6, 7])
 def test_bgop_session_matches_jax(n):
     """gop_size 4: the IDR due at display 4 falls inside the run; the odd
     run ends on a lone anchor."""
-    js = JaxSession(bcfg(JaxConfig))
-    want = js.encode_frames(FRAMES[:n])
+    js = GOLDEN.read(jax_bgop, n)
+    want = js["aus"]
     for coder in ("native", "python"):
         s = EncoderSession(bcfg(EncoderConfig), device="cpu",
                            host_coder=coder)
         got = s.encode_frames(FRAMES[:n])
         assert got == want, coder
     assert len(got) == n
-    assert (s._display_since_idr, s._ref_frame_num, s.frame_idx) == (
-        js._display_since_idr, js._ref_frame_num, js.frame_idx)
+    assert [s._display_since_idr, s._ref_frame_num,
+            s.frame_idx] == js["counters"]
     # The SPS NAL on its own: POC type 0, two reference frames.
     sps_j, sps_t = (next(nu for nu in tnal.iter_nal_units(aus[0])
                          if nu.nal_type == 7).rbsp for aus in (want, got))
@@ -91,14 +98,23 @@ def test_bgop_session_matches_jax(n):
     assert idrs == [0, 4]
 
 
-def test_single_frame_calls_in_b_mode_encode_anchors():
+@GOLDEN.recipe
+def jax_single_frame_calls():
+    """The JAX B-GOP session's AUs of three encode_frame calls."""
     js = JaxSession(bcfg(JaxConfig))
+    return [js.encode_frame(buf) for buf in FRAMES[:3]]
+
+
+def test_single_frame_calls_in_b_mode_encode_anchors():
     s = EncoderSession(bcfg(EncoderConfig), device="cpu")
-    for buf in FRAMES[:3]:
-        assert s.encode_frame(buf) == js.encode_frame(buf)
+    want = GOLDEN.read(jax_single_frame_calls)
+    assert [s.encode_frame(buf) for buf in FRAMES[:3]] == want
 
 
-def test_load_reference_state_continues_a_jax_bgop():
+@GOLDEN.recipe
+def jax_bgop_state():
+    """The JAX B-GOP session's state after IDR, P, B and its AUs of the
+    rest of FRAMES."""
     js = JaxSession(bcfg(JaxConfig))
     js.encode_frames(FRAMES[:3])  # IDR, P, B
     state = {
@@ -108,7 +124,11 @@ def test_load_reference_state_continues_a_jax_bgop():
         "_display_since_idr": js._display_since_idr,
         "_ref_frame_num": js._ref_frame_num,
     }
-    want = js.encode_frames(FRAMES[3:])
+    return state, js.encode_frames(FRAMES[3:])
+
+
+def test_load_reference_state_continues_a_jax_bgop():
+    state, want = GOLDEN.read(jax_bgop_state)
     s = EncoderSession(bcfg(EncoderConfig), device="cpu")
     s.load_reference_state(state)
     assert s.encode_frames(FRAMES[3:]) == want
@@ -123,10 +143,20 @@ def test_b_requires_cavlc_cq_single_slice():
                 cls(bcfg(cfg_cls, **kw), **extra)
 
 
+@GOLDEN.recipe
+def jax_bframe_core():
+    """The JAX FrameEncoder's encode_bframe on three frames of seed 4."""
+    from media_tpu.pipeline import encoder as jenc
+
+    ref0, cur, ref1 = [yuv.split_i420(b, W, H) for b in clip(3, seed=4)]
+    out = jenc.FrameEncoder(W, H).encode_bframe(*cur, ref0, ref1, QP + 2)
+    return {k: np.asarray(v) for k, v in out.items()}
+
+
 def test_bframe_core_matches_jax():
     frames = [yuv.split_i420(b, W, H) for b in clip(3, seed=4)]
     ref0, cur, ref1 = frames
-    want = jenc.FrameEncoder(W, H).encode_bframe(*cur, ref0, ref1, QP + 2)
+    want = GOLDEN.read(jax_bframe_core)
     got = tenc.FrameEncoder(W, H, "cpu").encode_bframe(*cur, ref0, ref1,
                                                        QP + 2)
     assert want.keys() == got.keys()
@@ -181,18 +211,32 @@ def _zero_frame():
     return bytes(W * H * 3 // 2)
 
 
-@pytest.mark.parametrize("case", ["one-slice", "two-slices", "all-zero",
-                                  "odd-size"])
-def test_lossless_matches_jax_and_decodes_to_the_input(case):
+LOSSLESS_CASES = ["one-slice", "two-slices", "all-zero", "odd-size"]
+
+
+def lossless_case(case):
+    """(width, height, config fields, frames) of a lossless case."""
     w, h = (44, 30) if case == "odd-size" else (W, H)
     kw = dict(width=w, height=h, qp=QP, lossless=True,
               num_slices=2 if case == "two-slices" else 1,
               insert_aud=case == "two-slices")
     bufs = ([_zero_frame()] * 2 if case == "all-zero"
             else clip(2, w, h, seed=6))
-    jcfg, tcfg = JaxConfig(**kw), EncoderConfig(**kw, cabac=True,
-                                                rc_mode="cbr")
-    want = JaxSession(jcfg).encode_frames(bufs)
+    return w, h, kw, bufs
+
+
+@GOLDEN.recipe(cases=LOSSLESS_CASES)
+def jax_lossless(case):
+    """The JAX lossless session's AUs of a case, in one encode_frames."""
+    _w, _h, kw, bufs = lossless_case(case)
+    return JaxSession(JaxConfig(**kw)).encode_frames(bufs)
+
+
+@pytest.mark.parametrize("case", LOSSLESS_CASES)
+def test_lossless_matches_jax_and_decodes_to_the_input(case):
+    w, h, kw, bufs = lossless_case(case)
+    tcfg = EncoderConfig(**kw, cabac=True, rc_mode="cbr")
+    want = GOLDEN.read(jax_lossless, case)
     s = EncoderSession(tcfg, device="cpu")
     got = [s.encode_frame(bufs[0])] + s.encode_frames(bufs[1:])
     assert got == want

@@ -2,13 +2,15 @@
 and decoder paths that emit and read CABAC.
 
 Same inputs, made from a numpy seed, through the JAX package (on the CPU)
-and the port (device="cpu"). Tolerance: none for bytes, integer arrays,
-planes, per-frame QPs and bit counts; the rate controller's three floats
-within 1e-6 relative (`buf` relative to the per-frame target, of whose order
-its terms are), because the float32 rate loop's last place differs between
-XLA and torch.
+and the port (device="cpu"). The JAX package's host coders run live; its
+sessions and decoder are read from tests/golden_torch/ (run_jax says what
+they were asked; tests/jax_golden.py). Tolerance: none for bytes, integer
+arrays, planes, per-frame QPs and bit counts; the rate controller's three
+floats within 1e-6 relative (`buf` relative to the per-frame target, of
+whose order its terms are), because the float32 rate loop's last place
+differs between XLA and torch.
 
-One JAX session per configuration (module-scoped) encodes an IDR through
+One JAX session per configuration encoded an IDR through
 encode_frame, 4 P through encode_frames, 4 P staged and 1 P through
 encode_frame, PIPELINE_CHUNK 2 on both sides: the port must repeat it byte
 for byte, continue it from the JAX session's state after the first run, and
@@ -23,13 +25,11 @@ import pytest
 import torch
 
 import chip_smoke as cs
+from jax_golden import Golden
 from media_tpu.entropy import cabac_contexts as jctx
 from media_tpu.entropy import cabac_engine as jeng
 from media_tpu.entropy import cabac_init_tables as jinit
 from media_tpu.entropy import cabac_slice as jslice
-from media_tpu.pipeline.codec import EncoderConfig as JaxConfig
-from media_tpu.pipeline.codec import EncoderSession as JaxSession
-from media_tpu.pipeline.decoder_tpu import TpuDecoder as JaxDecoder
 from media_tpu_torch import native
 from media_tpu_torch.entropy import cabac_contexts as tctx
 from media_tpu_torch.entropy import cabac_engine as teng
@@ -180,8 +180,7 @@ CONFIGS = {
 }
 
 
-def make(cls, name, **kw):
-    cfg_cls = JaxConfig if cls is JaxSession else EncoderConfig
+def make(cls, name, cfg_cls=EncoderConfig, **kw):
     s = cls(cfg_cls(width=W, height=H, qp=30, gop_size=30, framerate=30,
                     **CONFIGS[name]), **kw)
     s.PIPELINE_CHUNK = CHUNK
@@ -218,31 +217,31 @@ def snapshot(s) -> dict:
     }
 
 
-_JAX_RUNS: dict = {}
+# One deblocking wave per scan step: same bytes, smaller programs.
+GOLDEN = Golden(__file__, env={"MEDIA_TPU_DEBLOCK_UNROLL": "1"})
 
 
+@GOLDEN.recipe(cases=list(CONFIGS))
 def run_jax(name):
-    """The JAX session's run of a configuration, made once a process."""
-    if name not in _JAX_RUNS:
-        with pytest.MonkeyPatch.context() as mp:
-            # One deblocking wave per scan step: same bytes, smaller
-            # programs.
-            mp.setenv("MEDIA_TPU_DEBLOCK_UNROLL", "1")
-            s = make(JaxSession, name)
-            phases, rec, state = drive(s, name)
-            dec = JaxDecoder()
-            decoded = [f for au in sum(phases, [])
-                       for f in dec.decode_annexb(au)]
-            planes = [tuple(np.asarray(getattr(f, p)) for p in "yuv")
-                      for f in decoded]
-        _JAX_RUNS[name] = types.SimpleNamespace(
-            name=name, phases=phases, rec=rec, state=state, planes=planes)
-    return _JAX_RUNS[name]
+    """The JAX session's run of a configuration along drive(), and the JAX
+    TpuDecoder's pictures of its AUs."""
+    from media_tpu.pipeline.codec import EncoderConfig as JaxConfig
+    from media_tpu.pipeline.codec import EncoderSession as JaxSession
+    from media_tpu.pipeline.decoder_tpu import TpuDecoder as JaxDecoder
+
+    s = make(JaxSession, name, JaxConfig)
+    phases, rec, state = drive(s, name)
+    dec = JaxDecoder()
+    decoded = [f for au in sum(phases, []) for f in dec.decode_annexb(au)]
+    planes = [tuple(np.asarray(getattr(f, p)) for p in "yuv")
+              for f in decoded]
+    return {"phases": phases, "rec": rec, "state": state, "planes": planes}
 
 
 @pytest.fixture(scope="module", params=list(CONFIGS))
 def jax_run(request):
-    return run_jax(request.param)
+    return types.SimpleNamespace(name=request.param,
+                                 **GOLDEN.read(run_jax, request.param))
 
 
 def assert_rate_records_close(got: dict, want: dict, target: float):
@@ -376,7 +375,7 @@ def test_staged_entry_refuses_cabac_at_constant_qp(slices):
     got += s.encode_frames(FRAMES[1:5])
     got += s.encode_frames_staged(s.upload_frames(FRAMES[5:9]))
     got.append(s.encode_frame(FRAMES[9]))
-    assert got == sum(run_jax("cq_cabac").phases, [])
+    assert got == sum(GOLDEN.read(run_jax, "cq_cabac")["phases"], [])
     assert sum(native.fallbacks.values()) == before
     host = make(EncoderSession, "cq_cabac", device="cpu")
     host.encode_frame(FRAMES[0])

@@ -8,8 +8,9 @@ trace: every return code, every AU, every payload's digest, every event and
 what GetDecodeParams and the copy hook saw. The scenarios are the three
 cases of tests/test_capi.py and an API run whose properties go through
 MtpuEncoderSetParam: the format-2 selection after the factory, a forced
-IDR and a bitrate reset. The JAX library runs them once (module-scoped,
-on the JAX CPU backend); the port's, on the CPU through
+IDR and a bitrate reset. The JAX library's traces (on the JAX CPU backend)
+are read from tests/golden_torch/ (jax_scenarios says what it was asked;
+tests/jax_golden.py); the port's, on the CPU through
 CreateVideoEncoderOn(b"cpu") / CreateVideoDecoderOn(b"cpu"), must give the
 same trace (tolerance 0).
 Beside them: the void factories return NULL without CUDA (no fall-back to
@@ -30,7 +31,7 @@ import numpy as np
 import pytest
 
 import chip_smoke as cs
-from media_tpu import native as jnative
+from jax_golden import Golden
 from media_tpu_torch import native
 from media_tpu_torch.core import nal as tnal
 from media_tpu_torch.core import params as P
@@ -222,12 +223,16 @@ def _idr(w, h):
     return s.encode_frame(cs.clip_i420(w, h, 1, seed=2)[0][0])
 
 
-@pytest.fixture(scope="module")
-def streams():
+def make_streams():
     s = EncoderSession(EncoderConfig(width=W, height=H, qp=30, gop_size=4),
                        device="cpu")
     return {"cq": [s.encode_frame(b) for b in FRAMES[:3]],
             "idr64": _idr(W, H), "idr96": _idr(96, 64)}
+
+
+@pytest.fixture(scope="module")
+def streams():
+    return make_streams()
 
 
 @pytest.fixture(scope="module")
@@ -240,16 +245,32 @@ def port(port_so):
     return Side(port_so, b"cpu")
 
 
-@pytest.fixture(scope="module")
-def jax_traces(streams):
+# The JAX side deblocks one wave per scan step: the same bytes from smaller
+# programs.
+GOLDEN = Golden(__file__, env={"MEDIA_TPU_DEBLOCK_UNROLL": "1"})
+
+
+@GOLDEN.recipe
+def jax_scenarios():
+    """Every scenario through the JAX package's library (its void
+    factories), on the port's streams (make_streams), and those streams."""
+    from media_tpu import native as jnative
+
+    streams = make_streams()
     path = jnative.build_capi()
     assert path, "the JAX package's C ABI did not build"
     side = Side(path, None)
-    # The JAX side deblocks one wave per scan step: the same bytes from
-    # smaller programs.
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setenv("MEDIA_TPU_DEBLOCK_UNROLL", "1")
-        return {name: f(side, streams) for name, f in SCENARIOS.items()}
+    return {"streams": streams,
+            "traces": {name: f(side, streams)
+                       for name, f in SCENARIOS.items()}}
+
+
+@pytest.fixture(scope="module")
+def jax_traces(streams):
+    jax = GOLDEN.read(jax_scenarios)
+    assert jax["streams"] == streams, "the port's streams are not the " \
+                                      "recorded ones"
+    return jax["traces"]
 
 
 # ------------------------------------------------------------------ tests

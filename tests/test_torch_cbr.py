@@ -7,24 +7,19 @@ included), one chunk of the CBR loop with and without adaptive_qp and
 deblocking, and the CBR + CAVLC session with its host fallback. Tolerance:
 none for streams, bits, QPs, levels and planes; the rate controller's three
 floats within 1e-6 relative (`buf` relative to the per-frame target), since
-the float32 rate loop's last place differs between XLA and torch.
+the float32 rate loop's last place differs between XLA and torch. The JAX
+side is read from tests/golden_torch/ (the recipes say what the JAX package
+was asked; tests/jax_golden.py).
 """
 
 import types
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 import chip_smoke as cs
-from media_tpu.entropy import device_cavlc as jpack
-from media_tpu.ops import transform as JT
-from media_tpu.pipeline import encoder as jenc
-from media_tpu.pipeline import pframe_core as jcore
-from media_tpu.pipeline.codec import EncoderConfig as JaxConfig
-from media_tpu.pipeline.codec import EncoderSession as JaxSession
+from jax_golden import Golden
 from media_tpu_torch.core.bitstream import BitWriter
 from media_tpu_torch.entropy import device_cavlc as tpack
 from media_tpu_torch.ops import transform as T
@@ -36,44 +31,77 @@ from media_tpu_torch.pipeline.deblock_apply import build_meta
 
 W, H = 64, 48
 R, C = H // 16, W // 16
+GOLDEN = Golden(__file__)
 
 
 # ------------------------------------------------------------- ops/transform
 
+QP_FORMS = [0, 11, 30, 51, "scalar", "map"]
 
-@pytest.mark.parametrize("qp", [0, 11, 30, 51, "scalar", "map"])
-def test_quantisers_take_int_scalar_and_per_mb_qp(qp):
+
+def quant_inputs(qp):
+    """Coefficients and the QP in the form named: an int, a 0-d int32 (37)
+    or a per-MB map."""
     rng = np.random.default_rng(3)
     n = 7
     w = rng.integers(-4000, 4000, (n, 16, 4, 4)).astype(np.int32)
     w2 = rng.integers(-4000, 4000, (n, 2, 2)).astype(np.int32)
     qmap = rng.integers(0, 52, n).astype(np.int32)
-    if qp == "scalar":
-        jq, tq = jnp.int32(37), torch.tensor(37, dtype=torch.int32)
-    elif qp == "map":
-        jq, tq = jnp.asarray(qmap), torch.tensor(qmap)
-    else:
-        jq = tq = qp
-    tw, tw2 = torch.tensor(w), torch.tensor(w2)
-    pairs = []
+    q = {"scalar": np.int32(37), "map": qmap}.get(qp, qp)
+    return w, w2, q
+
+
+@GOLDEN.recipe(cases=QP_FORMS)
+def jax_quantisers(qp):
+    """The JAX quantisers and dequantisers, intra and inter."""
+    import jax.numpy as jnp
+
+    from media_tpu.ops import transform as JT
+
+    w, w2, q = quant_inputs(qp)
+    jq = jnp.asarray(q) if isinstance(q, np.ndarray | np.generic) else q
+    out = []
     for intra in (True, False):
-        pairs.append((JT.quant_4x4(w, jq, intra=intra),
-                      T.quant_4x4(tw, tq, intra=intra)))
-        pairs.append((JT.quant_dc_2x2(w2, jq, intra=intra),
-                      T.quant_dc_2x2(tw2, tq, intra=intra)))
-    pairs.append((JT.dequant_4x4(w // 64, jq), T.dequant_4x4(tw // 64, tq)))
-    pairs.append((JT.dequant_dc_2x2(w2 // 16, jq),
-                  T.dequant_dc_2x2(tw2 // 16, tq)))
-    for want, got in pairs:
-        assert got.dtype == torch.int32
-        np.testing.assert_array_equal(np.asarray(want), got.numpy())
+        out.append(JT.quant_4x4(w, jq, intra=intra))
+        out.append(JT.quant_dc_2x2(w2, jq, intra=intra))
+    out.append(JT.dequant_4x4(w // 64, jq))
+    out.append(JT.dequant_dc_2x2(w2 // 16, jq))
+    return [np.asarray(a) for a in out]
+
+
+@pytest.mark.parametrize("qp", QP_FORMS)
+def test_quantisers_take_int_scalar_and_per_mb_qp(qp):
+    w, w2, q = quant_inputs(qp)
+    tq = torch.tensor(q) if isinstance(q, np.ndarray | np.generic) else q
+    tw, tw2 = torch.tensor(w), torch.tensor(w2)
+    got = []
+    for intra in (True, False):
+        got.append(T.quant_4x4(tw, tq, intra=intra))
+        got.append(T.quant_dc_2x2(tw2, tq, intra=intra))
+    got.append(T.dequant_4x4(tw // 64, tq))
+    got.append(T.dequant_dc_2x2(tw2 // 16, tq))
+    want = GOLDEN.read(jax_quantisers, qp)
+    assert len(got) == len(want)
+    for w_, g in zip(want, got):
+        assert g.dtype == torch.int32
+        np.testing.assert_array_equal(w_, g.numpy())
+
+
+@GOLDEN.recipe
+def jax_chroma_qp_device():
+    """chroma_qp_device over QPs -3..55."""
+    import jax.numpy as jnp
+
+    from media_tpu.pipeline import pframe_core as jcore
+
+    return np.asarray(jcore.chroma_qp_device(
+        jnp.arange(-3, 56, dtype=jnp.int32)))
 
 
 def test_chroma_qp_device_and_tensor_qp_meta():
     qp = torch.arange(-3, 56, dtype=torch.int32)
-    np.testing.assert_array_equal(
-        np.asarray(jcore.chroma_qp_device(jnp.asarray(qp.numpy()))),
-        tcore.chroma_qp_device(qp).numpy())
+    np.testing.assert_array_equal(GOLDEN.read(jax_chroma_qp_device),
+                                  tcore.chroma_qp_device(qp).numpy())
     # The deblocking meta from a QP held in a 0-d tensor, as the rate loop
     # hands it over, equals the meta from the same QP as a Python int.
     g = torch.Generator().manual_seed(0)
@@ -95,16 +123,11 @@ def _sparse(rng, shape, density, mag=30):
     return (a * (rng.random(shape) < density)).astype(np.int32)
 
 
-# One compiled program for the three cases (eagerly, the JAX packer
-# dispatches thousands of small operations).
-_JAX_PACK = jax.jit(lambda mv, luma, cdc, cac, qp_map, slice_qp:
-                    jpack.pack_pslice_device(mv, luma, cdc, cac, 4096,
-                                             qp_map=qp_map,
-                                             slice_qp=slice_qp))
+PACK_CASES = [(0, 0.02), (1, 0.15), (2, 0.5)]
 
 
-@pytest.mark.parametrize("seed,density", [(0, 0.02), (1, 0.15), (2, 0.5)])
-def test_pack_pslice_device_with_qp_map(seed, density):
+def pack_inputs(seed, density):
+    """P symbols with skip candidates and uncoded MBs, and a QP map."""
     rng = np.random.default_rng(seed)
     mv = rng.integers(-6, 7, (R, C, 2)).astype(np.int32)
     luma = _sparse(rng, (R, C, 16, 16), density)
@@ -114,17 +137,40 @@ def test_pack_pslice_device_with_qp_map(seed, density):
         a[1:, :2] = 0  # skip candidates and uncoded MBs
     # 2 beside 50: a delta of +48 is coded as -4, one of -48 as +4.
     qp_map = rng.choice([2, 29, 30, 50], (R, C)).astype(np.int32)
-    cap = 4096
-    want_s, want_b = _JAX_PACK(
+    return mv, luma, cdc, cac, qp_map
+
+
+@GOLDEN.recipe(cases=PACK_CASES)
+def jax_pack(seed, density):
+    """The JAX device packer at a cap of 4096 words, slice QP 30: (stream
+    words, bits). Jitted: eagerly it dispatches thousands of small
+    operations."""
+    import jax
+    import jax.numpy as jnp
+
+    from media_tpu.entropy import device_cavlc as jpack
+
+    mv, luma, cdc, cac, qp_map = pack_inputs(seed, density)
+    s, b = jax.jit(lambda mv, luma, cdc, cac, qp_map, slice_qp:
+                   jpack.pack_pslice_device(mv, luma, cdc, cac, 4096,
+                                            qp_map=qp_map,
+                                            slice_qp=slice_qp))(
         jnp.asarray(mv), jnp.asarray(luma), jnp.asarray(cdc),
-        jnp.asarray(cac), qp_map=jnp.asarray(qp_map), slice_qp=jnp.int32(30))
+        jnp.asarray(cac), jnp.asarray(qp_map), jnp.int32(30))
+    return np.asarray(s), int(b)
+
+
+@pytest.mark.parametrize("seed,density", PACK_CASES)
+def test_pack_pslice_device_with_qp_map(seed, density):
+    mv, luma, cdc, cac, qp_map = pack_inputs(seed, density)
+    cap = 4096
+    want_s, want_b = GOLDEN.read(jax_pack, seed, density)
     got_s, got_b = tpack.pack_pslice_device(
         *(torch.tensor(a) for a in (mv, luma, cdc, cac)), cap,
         qp_map=torch.tensor(qp_map),
         slice_qp=torch.tensor(30, dtype=torch.int32))
     assert int(got_b) == int(want_b) <= cap * 32
-    np.testing.assert_array_equal(got_s.numpy().astype(np.uint32),
-                                  np.asarray(want_s))
+    np.testing.assert_array_equal(got_s.numpy().astype(np.uint32), want_s)
     # ... and equals the Python writer given the same map.
     bw = BitWriter()
     slice_coder.write_pslice_mbs(bw, mv=mv, luma_levels=luma, cdc_levels=cdc,
@@ -172,28 +218,50 @@ def _close(a, b, scale=0.0):
     return abs(a - b) <= 1e-6 * max(abs(a), abs(b), scale)
 
 
-@pytest.mark.parametrize("k,adaptive,deblock", [
-    (1, False, False), (3, False, True), (3, True, False), (3, True, True),
-], ids=["step-frame_qp-plain", "chunk-frame_qp-deblock",
-        "chunk-mb_qp-plain", "chunk-mb_qp-deblock"])
-def test_cbr_chunk_equals_jax(k, adaptive, deblock, monkeypatch):
-    """One step and a chunk of three of the device rate loop (each case
-    compiles a JAX program of its own, so four cases, not eight)."""
-    monkeypatch.setenv("MEDIA_TPU_DEBLOCK_UNROLL", "1")
+CHUNK_CASES = [(1, False, False), (3, False, True), (3, True, False),
+               (3, True, True)]
+
+
+def chunk_args(k, adaptive, deblock):
     ys, us, vs = (np.stack([f[i] for f in PLANES[1 : 1 + k]])
                   for i in range(3))
-    args = (ys, us, vs, *PLANES[0], RC0, TARGET)
-    kw = dict(deblock=deblock, adaptive_qp=adaptive, cap=16384)
-    want = jenc.FrameEncoder(W, H).encode_pframes_cbr(*args, **kw)
+    return ((ys, us, vs, *PLANES[0], RC0, TARGET),
+            dict(deblock=deblock, adaptive_qp=adaptive, cap=16384))
+
+
+@GOLDEN.recipe(cases=CHUNK_CASES)
+def jax_cbr_chunk(k, adaptive, deblock):
+    """The JAX FrameEncoder's encode_pframes_cbr on chunk_args(): streams,
+    bits, QPs, recon planes and the rate carry."""
+    from media_tpu.pipeline import encoder as jenc
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("MEDIA_TPU_DEBLOCK_UNROLL", "1")
+        args, kw = chunk_args(k, adaptive, deblock)
+        out = jenc.FrameEncoder(W, H).encode_pframes_cbr(*args, **kw)
+    return ([np.asarray(a) for a in out[:3]],
+            [np.asarray(a) for a in out[3]], dict(out[4]))
+
+
+@pytest.mark.parametrize("k,adaptive,deblock", CHUNK_CASES, ids=[
+    "step-frame_qp-plain", "chunk-frame_qp-deblock", "chunk-mb_qp-plain",
+    "chunk-mb_qp-deblock"])
+def test_cbr_chunk_equals_jax(k, adaptive, deblock):
+    """One step and a chunk of three of the device rate loop (four cases,
+    not eight: each compiled a JAX program of its own)."""
+    args, kw = chunk_args(k, adaptive, deblock)
+    arrays, recon, rc = GOLDEN.read(jax_cbr_chunk, k, adaptive, deblock)
+    want = (*arrays, recon, rc)
     enc = tenc.FrameEncoder(W, H, "cpu")
     ref_before = [p.copy() for p in PLANES[0]]
     got = enc.encode_pframes_cbr(*args, **kw)
-    np.testing.assert_array_equal(got[0], np.asarray(want[0]))  # streams
-    np.testing.assert_array_equal(got[1], np.asarray(want[1]))  # bits
-    np.testing.assert_array_equal(got[2], np.asarray(want[2]))  # qps
+    np.testing.assert_array_equal(got[0], want[0])  # streams
+    np.testing.assert_array_equal(got[1], want[1])  # bits
+    np.testing.assert_array_equal(got[2], want[2])  # qps
     assert got[2].dtype == np.int32
+    assert len(got[3]) == len(want[3])
     for a, b in zip(got[3], want[3]):
-        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+        np.testing.assert_array_equal(a.numpy(), b)
     assert _close(got[4]["qp"], want[4]["qp"])
     assert _close(got[4]["cplx"], want[4]["cplx"])
     assert _close(got[4]["buf"], want[4]["buf"], TARGET)
@@ -248,10 +316,14 @@ def drive(s):
     return aus, cs.rate_record(s, aus, log)
 
 
-@pytest.fixture(scope="module")
-def jax_cbr():
+@GOLDEN.recipe
+def jax_cbr_run():
     """The JAX session's CBR + CAVLC run, and the same run with a stream
     budget of 8 words, which sends every P run down the host fallback."""
+    from media_tpu.pipeline import encoder as jenc
+    from media_tpu.pipeline.codec import EncoderConfig as JaxConfig
+    from media_tpu.pipeline.codec import EncoderSession as JaxSession
+
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("MEDIA_TPU_DEBLOCK_UNROLL", "1")
         s = JaxSession(JaxConfig(**CBR))
@@ -260,8 +332,13 @@ def jax_cbr():
         mp.setattr(jenc.FrameEncoder, "cap_words", property(lambda _: 8))
         f = JaxSession(JaxConfig(**CBR))
         fallback = [f.encode_frame(FRAMES[0])] + f.encode_frames(FRAMES[1:4])
-    return types.SimpleNamespace(aus=aus, rec=rec, fallback=fallback,
-                                 fallback_rc=dict(f.rc_state))
+    return dict(aus=aus, rec=rec, fallback=fallback,
+                fallback_rc=dict(f.rc_state))
+
+
+@pytest.fixture(scope="module")
+def jax_cbr():
+    return types.SimpleNamespace(**GOLDEN.read(jax_cbr_run))
 
 
 def port(**kw):

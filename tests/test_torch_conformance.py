@@ -12,14 +12,17 @@ the port's reconstruction, and the port's decoders must match ffmpeg bit
 for bit on streams of the independent libx264 encoder. One case more than
 the original: the port's VideoDecoder (the device decoder behind the API,
 on the CPU) on the libx264 streams, handing over to the scalar oracle as
-often as the JAX VideoDecoder does. Skipped where the system libavcodec is
-unavailable, as the original is.
+often as the JAX VideoDecoder does (its hand-overs read from
+tests/golden_torch/; jax_x264_handovers says what it was asked;
+tests/jax_golden.py). Skipped where the system libavcodec is unavailable,
+as the original is.
 """
 
 import numpy as np
 import pytest
 
 import chip_smoke as cs
+from jax_golden import Digest, Golden
 from media_tpu_torch import api as tapi
 from media_tpu_torch.pipeline.codec import EncoderConfig, EncoderSession
 from media_tpu_torch.ref.decoder import ReferenceDecoder
@@ -272,16 +275,28 @@ def x264():
     return dict(_x264_streams())
 
 
-@pytest.fixture(scope="module")
-def jax_handovers(x264):
+# The JAX device decoder deblocks one wave per scan step.
+GOLDEN = Golden(__file__, env={"MEDIA_TPU_DEBLOCK_UNROLL": "1"})
+
+
+@GOLDEN.recipe
+def jax_x264_handovers():
     """The JAX VideoDecoder's hand-overs to its scalar oracle on each
-    stream (its device decoder deblocks one wave per scan step)."""
+    libx264 stream, and each stream's digest."""
     from media_tpu import api as japi
 
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setenv("MEDIA_TPU_DEBLOCK_UNROLL", "1")
-        return {name: cs.drive_api_decode(japi, [bs])["fallbacks"]
-                for name, bs in x264.items()}
+    return {name: {"stream": Digest.of(np.frombuffer(bs, np.uint8)),
+                   "fallbacks": cs.drive_api_decode(japi, [bs])["fallbacks"]}
+            for name, bs in _x264_streams()}
+
+
+@pytest.fixture(scope="module")
+def jax_handovers(x264):
+    want = GOLDEN.read(jax_x264_handovers)
+    for name, bs in x264.items():
+        assert want[name]["stream"] == np.frombuffer(bs, np.uint8), \
+            f"libx264 made another {name} stream than the recorded one"
+    return {name: w["fallbacks"] for name, w in want.items()}
 
 
 @pytest.mark.parametrize("name", ["baseline", "ref1", "ref3_p8x8"])

@@ -9,16 +9,17 @@ Python model of its schedule (MB by MB, rows advancing independently under
 its progress rule, with its stores, its carried columns and the rows it
 hands from one MB row to the next) must give the
 plain version's planes in any order the rule allows, and other planes in an
-order that breaks the rule by one MB. Everything is integer: tolerance 0.
+order that breaks the rule by one MB. The JAX side is read from
+tests/golden_torch/ (the recipes say what the JAX package was asked;
+tests/jax_golden.py); the numpy oracle runs live. Everything is integer:
+tolerance 0.
 """
 
-import jax
 import numpy as np
 import pytest
 import torch
 
-from media_tpu.ops import deblock as jdb
-from media_tpu.pipeline import deblock_apply as jda
+from jax_golden import Golden
 from media_tpu.ref.deblock import (
     deblock_frame_np, inter_bs_grids_np, intra_bs_grids_np)
 from media_tpu_torch.ops import deblock as tdb
@@ -27,18 +28,20 @@ from media_tpu_torch.ops.deblock_pallas import deblock_wave_step_plain
 from media_tpu_torch.pipeline import deblock_apply as tda
 
 
-# Jitted once per mode (QP traced), so the JAX side compiles few programs.
-_jax_wavemajor = jax.jit(jda._deblock_frame_wavemajor, static_argnums=(7, 8))
-_jax_pframe = jax.jit(jda.deblock_pframe_from_symbols,
-                      static_argnums=(6, 7, 8))
-_jax_iframe = jax.jit(jda.deblock_iframe, static_argnums=(5, 6, 7))
+# One wave per scan step: the same result as the default 8-wave unroll, and
+# a much smaller program for XLA to compile.
+GOLDEN = Golden(__file__, env={"MEDIA_TPU_DEBLOCK_UNROLL": "1"})
 
 
-@pytest.fixture(autouse=True)
-def _small_jax_scan(monkeypatch):
-    # One wave per scan step: the same result as the default 8-wave unroll,
-    # and a much smaller program for XLA to compile.
-    monkeypatch.setenv("MEDIA_TPU_DEBLOCK_UNROLL", "1")
+def jax_wavemajor(y, u, v, qp, qp_c, bs_v, bs_h, R, C, qp_map=None):
+    """The JAX wave-major scan, jitted (QP traced): the planes out."""
+    import jax
+
+    from media_tpu.pipeline import deblock_apply as jda
+
+    out = jax.jit(jda._deblock_frame_wavemajor, static_argnums=(7, 8))(
+        y, u, v, qp, qp_c, bs_v, bs_h, R, C, qp_map=qp_map)
+    return [np.asarray(p) for p in out]
 
 
 def planes(R, C, seed, smooth):
@@ -67,23 +70,57 @@ def torch_deblock(y, u, v, qp, qp_c, bs_v, bs_h, R, C, qp_map=None):
     return [p.numpy() for p in out]
 
 
-@pytest.mark.parametrize("per_mb", [False, True])
-@pytest.mark.parametrize("qp,smooth", [(22, True), (30, True), (36, False)])
-def test_plain_matches_jax_wavemajor(qp, smooth, per_mb):
+WAVEMAJOR_CASES = [(qp, smooth, per_mb) for qp, smooth in
+                   ((22, True), (30, True), (36, False))
+                   for per_mb in (False, True)]
+
+
+def wavemajor_case(qp, smooth, per_mb):
+    """(planes, qp_c, bS grids, QP map or None) on 3x5 MBs."""
     R, C = 3, 5
-    y, u, v = planes(R, C, qp, smooth)
-    bs_v, bs_h = random_bs(R, C, qp)
     qp_map = None
     if per_mb:
         rng = np.random.default_rng(qp + 7)
         qp_map = np.clip(qp + rng.integers(-6, 7, (R, C)), 0, 51).astype(
             np.int32)
-    qp_c = min(qp, 39)
-    want = _jax_wavemajor(y, u, v, qp, qp_c, bs_v, bs_h, R, C, qp_map=qp_map)
+    return planes(R, C, qp, smooth), min(qp, 39), random_bs(R, C, qp), qp_map
+
+
+@GOLDEN.recipe(cases=WAVEMAJOR_CASES)
+def jax_wavemajor_case(qp, smooth, per_mb):
+    (y, u, v), qp_c, (bs_v, bs_h), qp_map = wavemajor_case(qp, smooth, per_mb)
+    return jax_wavemajor(y, u, v, qp, qp_c, bs_v, bs_h, 3, 5, qp_map=qp_map)
+
+
+@pytest.mark.parametrize("per_mb", [False, True])
+@pytest.mark.parametrize("qp,smooth", [(22, True), (30, True), (36, False)])
+def test_plain_matches_jax_wavemajor(qp, smooth, per_mb):
+    R, C = 3, 5
+    (y, u, v), qp_c, (bs_v, bs_h), qp_map = wavemajor_case(qp, smooth, per_mb)
+    want = GOLDEN.read(jax_wavemajor_case, qp, smooth, per_mb)
     got = torch_deblock(y, u, v, qp, qp_c, bs_v, bs_h, R, C, qp_map)
     for a, b, name in zip(want, got, "yuv"):
-        np.testing.assert_array_equal(np.asarray(a), b, err_msg=name)
+        np.testing.assert_array_equal(a, b, err_msg=name)
     assert any((b != p).any() for b, p in zip(got, (y, u, v)))
+
+
+def inter_case():
+    """Coded-block flags and MVs of 4x3 MBs."""
+    rng = np.random.default_rng(1)
+    nnz = rng.integers(0, 3, (4 * 4, 3 * 4)).astype(np.int32)
+    mv = rng.integers(-9, 10, (4, 3, 2)).astype(np.int32)
+    return nnz, mv
+
+
+@GOLDEN.recipe(cases=[False, True])
+def jax_bs_grids(inter):
+    """The JAX package's bS grids of 4x3 MBs: inter on inter_case(), or
+    intra."""
+    from media_tpu.ops import deblock as jdb
+
+    grids = (jdb.inter_bs_grids(*inter_case(), 4, 3) if inter
+             else jdb.intra_bs_grids(4, 3))
+    return [np.asarray(g) for g in grids]
 
 
 @pytest.mark.parametrize("inter", [False, True])
@@ -91,19 +128,16 @@ def test_plain_matches_numpy_oracle(inter):
     R, C = 4, 3
     y, u, v = planes(R, C, 5, smooth=True)
     if inter:
-        rng = np.random.default_rng(1)
-        nnz = rng.integers(0, 3, (R * 4, C * 4)).astype(np.int32)
-        mv = rng.integers(-9, 10, (R, C, 2)).astype(np.int32)
+        nnz, mv = inter_case()
         bs_v, bs_h = inter_bs_grids_np(nnz, mv)
         tv, th = tdb.inter_bs_grids(torch.as_tensor(nnz), torch.as_tensor(mv),
                                     R, C)
-        jv, jh = jdb.inter_bs_grids(nnz, mv, R, C)
     else:
         bs_v, bs_h = intra_bs_grids_np(R, C)
         tv, th = tdb.intra_bs_grids(R, C)
-        jv, jh = jdb.intra_bs_grids(R, C)
+    jv, jh = GOLDEN.read(jax_bs_grids, inter)
     for a, b, c in ((bs_v, tv, jv), (bs_h, th, jh)):
-        np.testing.assert_array_equal(np.asarray(c), b.numpy())
+        np.testing.assert_array_equal(c, b.numpy())
         np.testing.assert_array_equal(np.asarray(a), b.numpy())
     want = deblock_frame_np(y, u, v, 30, 29, bs_v, bs_h)
     got = torch_deblock(y, u, v, 30, 29, bs_v, bs_h, R, C)
@@ -111,7 +145,8 @@ def test_plain_matches_numpy_oracle(inter):
         np.testing.assert_array_equal(np.asarray(a), b, err_msg=name)
 
 
-def test_pframe_and_iframe_drivers_match_jax():
+def deblock_entries_case():
+    """uint8 planes and P symbols of 2x3 MBs."""
     R, C = 2, 3
     rng = np.random.default_rng(11)
     y, u, v = (p.astype(np.uint8) for p in planes(R, C, 11, smooth=True))
@@ -119,16 +154,37 @@ def test_pframe_and_iframe_drivers_match_jax():
     sym[..., :2] = rng.integers(-20, 21, (R, C, 2))
     sym[..., 2:258] = (rng.integers(0, 5, (R, C, 256)) == 0) * rng.integers(
         -3, 4, (R, C, 256))
+    return (y, u, v), sym
+
+
+@GOLDEN.recipe
+def jax_deblock_entries():
+    """The jitted JAX deblock_pframe_from_symbols (QP 30) and deblock_iframe
+    (QP 36, a slice start at row 1) on deblock_entries_case()."""
+    import jax
+
+    from media_tpu.pipeline import deblock_apply as jda
+
+    (y, u, v), sym = deblock_entries_case()
+    pframe = jax.jit(jda.deblock_pframe_from_symbols,
+                     static_argnums=(6, 7, 8))(y, u, v, sym, 30, 29, 2, 3, ())
+    iframe = jax.jit(jda.deblock_iframe, static_argnums=(5, 6, 7))(
+        y, u, v, 36, 34, 2, 3, (1,))
+    return ([np.asarray(p) for p in pframe], [np.asarray(p) for p in iframe])
+
+
+def test_pframe_and_iframe_drivers_match_jax():
+    R, C = 2, 3
+    (y, u, v), sym = deblock_entries_case()
+    want_p, want_i = GOLDEN.read(jax_deblock_entries)
     T = torch.as_tensor
-    want = _jax_pframe(y, u, v, sym, 30, 29, R, C, ())
     got = tda.deblock_pframe_from_symbols(T(y), T(u), T(v), T(sym), 30, 29,
                                           R, C)
-    for a, b in zip(want, got):
-        np.testing.assert_array_equal(np.asarray(a), b.numpy())
-    want = _jax_iframe(y, u, v, 36, 34, R, C, (1,))
+    for a, b in zip(want_p, got):
+        np.testing.assert_array_equal(a, b.numpy())
     got = tda.deblock_iframe(T(y), T(u), T(v), 36, 34, R, C, slice_starts=(1,))
-    for a, b in zip(want, got):
-        np.testing.assert_array_equal(np.asarray(a), b.numpy())
+    for a, b in zip(want_i, got):
+        np.testing.assert_array_equal(a, b.numpy())
 
 
 def test_wave_schedule_covers_every_mb_once():
@@ -246,11 +302,18 @@ def test_row_block_schedule_matches_plain(R, C, seed):
         assert any(not torch.equal(a, p) for a, p in zip(want, src))
 
 
+@GOLDEN.recipe
+def jax_row_block_case():
+    """The JAX wave-major scan on _model_case(3, 5, 30, 30)."""
+    src, _meta, (bs_v, bs_h) = _model_case(3, 5, 30, 30)
+    return jax_wavemajor(*(p.numpy().astype(np.int32) for p in src), 30,
+                         30, bs_v, bs_h, 3, 5)
+
+
 def test_row_block_schedule_matches_jax_wavemajor():
     R, C, qp = 3, 5, 30
     src, meta, (bs_v, bs_h) = _model_case(R, C, qp, qp)
-    want = _jax_wavemajor(*(p.numpy().astype(np.int32) for p in src), qp,
-                          min(qp, 39), bs_v, bs_h, R, C, qp_map=None)
+    want = GOLDEN.read(jax_row_block_case)
     # Rows as far ahead of each other as the rule lets them: the last row
     # first whenever it may move.
     got = RowBlockModel(src, meta, R, C).run(np.random.default_rng(0),

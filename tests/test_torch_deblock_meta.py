@@ -16,7 +16,8 @@ No card here, so three things stand in for it:
   failed launch raises;
 - the deblocking entry points that call the wrapper, on CPU tensors,
   against the JAX package's deblock_pframe_from_symbols and deblock_iframe
-  planes.
+  planes (read from tests/golden_torch/; the recipes say what the JAX
+  package was asked; tests/jax_golden.py).
 
 Everything is integer: tolerance 0. The kernel is held to the plain version
 on the card by tests/test_torch_cuda.py and chip_smoke.py.
@@ -30,13 +31,12 @@ import subprocess
 import threading
 import types
 
-import jax
 import numpy as np
 import pytest
 import torch
 
 from chip_smoke import META_SHAPES, meta_qps, meta_runs, meta_symbols
-from media_tpu.pipeline import deblock_apply as jda
+from jax_golden import Golden
 from media_tpu_torch import kernels
 from media_tpu_torch.ops.deblock import META_COLS
 from media_tpu_torch.pipeline import deblock_apply as tda
@@ -270,10 +270,8 @@ def test_deblocking_entries_route_through_the_wrapper(monkeypatch):
 # ------------------------------------------------ against the JAX package
 
 
-_jax_pframe = jax.jit(jda.deblock_pframe_from_symbols,
-                      static_argnums=(6, 7, 8))
-_jax_iframe = jax.jit(jda.deblock_iframe, static_argnums=(5, 6, 7))
 JAX_R, JAX_C = 3, 4
+GOLDEN = Golden(__file__, env={"MEDIA_TPU_DEBLOCK_UNROLL": "1"})
 
 
 def _jax_planes(seed):
@@ -282,39 +280,50 @@ def _jax_planes(seed):
             .astype(np.uint8) for s in (16, 8, 8)]
 
 
+@GOLDEN.recipe
+def jax_deblock_runs():
+    """The jitted JAX deblock_pframe_from_symbols at QP 30 with a slice
+    start ("pframe_uniform") and with a per-MB QP map ("pframe_map"), and
+    deblock_iframe at QP 36 with a slice start ("iframe"): planes out."""
+    import jax
+
+    from media_tpu.pipeline import deblock_apply as jda
+
+    pframe = jax.jit(jda.deblock_pframe_from_symbols,
+                     static_argnums=(6, 7, 8))
+    iframe = jax.jit(jda.deblock_iframe, static_argnums=(5, 6, 7))
+    out = {
+        "pframe_uniform": pframe(*_jax_planes(1),
+                                 meta_symbols(JAX_R, JAX_C, 1).numpy(), 30,
+                                 29, JAX_R, JAX_C, (1,)),
+        "pframe_map": pframe(*_jax_planes(2),
+                             meta_symbols(JAX_R, JAX_C, 2, "dense").numpy(),
+                             30, 29, JAX_R, JAX_C, (),
+                             meta_qps("map", JAX_R, JAX_C, 2)[2].numpy()),
+        "iframe": iframe(*_jax_planes(3), 36, 34, JAX_R, JAX_C, (2,)),
+    }
+    return {k: [np.asarray(p) for p in v] for k, v in out.items()}
+
+
 @pytest.fixture(scope="module")
 def jax_pframe_uniform():
-    """The JAX deblock_pframe_from_symbols at QP 30 with a slice start:
-    (planes, symbols, planes out)."""
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setenv("MEDIA_TPU_DEBLOCK_UNROLL", "1")
-        planes, sym = _jax_planes(1), meta_symbols(JAX_R, JAX_C, 1)
-        out = _jax_pframe(*planes, sym.numpy(), 30, 29, JAX_R, JAX_C, (1,))
-        return planes, sym, [np.asarray(p) for p in out]
+    """(planes, symbols, the JAX planes out) at QP 30, a slice start."""
+    return (_jax_planes(1), meta_symbols(JAX_R, JAX_C, 1),
+            GOLDEN.read(jax_deblock_runs)["pframe_uniform"])
 
 
 @pytest.fixture(scope="module")
 def jax_pframe_map():
-    """The JAX deblock_pframe_from_symbols with a per-MB QP map: (planes,
-    symbols, map, planes out)."""
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setenv("MEDIA_TPU_DEBLOCK_UNROLL", "1")
-        planes, sym = _jax_planes(2), meta_symbols(JAX_R, JAX_C, 2, "dense")
-        qmap = meta_qps("map", JAX_R, JAX_C, 2)[2]
-        out = _jax_pframe(*planes, sym.numpy(), 30, 29, JAX_R, JAX_C, (),
-                          qmap.numpy())
-        return planes, sym, qmap, [np.asarray(p) for p in out]
+    """(planes, symbols, map, the JAX planes out) with a per-MB QP map."""
+    return (_jax_planes(2), meta_symbols(JAX_R, JAX_C, 2, "dense"),
+            meta_qps("map", JAX_R, JAX_C, 2)[2],
+            GOLDEN.read(jax_deblock_runs)["pframe_map"])
 
 
 @pytest.fixture(scope="module")
 def jax_iframe():
-    """The JAX deblock_iframe at QP 36 with a slice start: (planes, planes
-    out)."""
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setenv("MEDIA_TPU_DEBLOCK_UNROLL", "1")
-        planes = _jax_planes(3)
-        out = _jax_iframe(*planes, 36, 34, JAX_R, JAX_C, (2,))
-        return planes, [np.asarray(p) for p in out]
+    """(planes, the JAX planes out) at QP 36, a slice start."""
+    return _jax_planes(3), GOLDEN.read(jax_deblock_runs)["iframe"]
 
 
 def _assert_planes(got, want):

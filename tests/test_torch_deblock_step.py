@@ -8,18 +8,18 @@ MEDIA_TPU_DEBLOCK_KERNEL=pallas and the port's own whole-frame route. The
 in-place wave step (patches read from and written to the raster planes, row
 0 and column 0 guarded) must equal the same waves run on planes padded by 4
 at the top and left. The CUDA kernel is held to the plain version in
-tests/test_torch_cuda.py.
+tests/test_torch_cuda.py. The JAX side is read from tests/golden_torch/ (the
+recipes say what the JAX package was asked; tests/jax_golden.py); its
+filter tables and the numpy bS grids are read live.
 Everything is integer: tolerance 0.
 """
 
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from jax_golden import Golden
 from media_tpu.ops import deblock as jdb
-from media_tpu.ops.deblock_pallas import deblock_wave_pallas
-from media_tpu.pipeline import deblock_apply as jda
 from media_tpu.ref.deblock import inter_bs_grids_np, intra_bs_grids_np
 from media_tpu_torch.ops import deblock_pallas as tdp
 from media_tpu_torch.ops import deblock_wave as tdw
@@ -45,18 +45,20 @@ def torch_deblock(y, u, v, qp, qp_c, bs_v, bs_h, R, C, kernel, qp_map=None):
     return [p.numpy() for p in out]
 
 
+GOLDEN = Golden(__file__)
+
+
 def _tc0(bs, qp):
     row = jdb.TC0_TABLE[qp]
     return np.where(bs == 1, row[0], np.where(bs == 2, row[1],
                                               np.where(bs == 3, row[2], 0)))
 
 
-@pytest.mark.parametrize("n,qp,smooth", [(1, 30, True), (7, 22, True),
-                                         (12, 36, False)])
-def test_step_plain_matches_pallas_interpret(n, qp, smooth):
-    """N patches with random bS (0..4) per edge and 4x4 block: the Pallas
-    kernel takes eight strength arrays and four scalars, the port one meta
-    row per MB carrying the same values."""
+STEP_CASES = [(1, 30, True), (7, 22, True), (12, 36, False)]
+
+
+def step_case(n, qp, smooth):
+    """N patches with random bS (0..4) per edge and 4x4 block."""
     rng = np.random.default_rng(n + qp)
     qp_c = min(qp, 39) - 1
     yp = rng.integers(0, 256, (n, 20, 20)).astype(np.int32)
@@ -66,9 +68,21 @@ def test_step_plain_matches_pallas_interpret(n, qp, smooth):
         yp, up, vp = yp // 8 + 100, up // 8 + 80, vp // 8 + 80
     bsv = rng.integers(0, 5, (n, 4, 4)).astype(np.int32)  # [mb, edge, block]
     bsh = rng.integers(0, 5, (n, 4, 4)).astype(np.int32)
+    return qp_c, (yp, up, vp), bsv, bsh
+
+
+@GOLDEN.recipe(cases=STEP_CASES)
+def jax_wave_pallas(n, qp, smooth):
+    """The JAX package's Pallas wave kernel in interpret mode on
+    step_case(): eight strength arrays (edge index leading, one value per
+    sample line) and four scalars."""
+    import jax.numpy as jnp
+
+    from media_tpu.ops.deblock_pallas import deblock_wave_pallas
+
+    qp_c, (yp, up, vp), bsv, bsh = step_case(n, qp, smooth)
     bscv, bsch = bsv[:, (0, 2)], bsh[:, (0, 2)]
 
-    # JAX side: edge index leading, one value per sample line.
     def lead(bs, rep, horizontal):
         x = np.repeat(bs, rep, axis=2).transpose(1, 0, 2)
         return x[:, :, None, :] if horizontal else x[..., None]
@@ -77,12 +91,25 @@ def test_step_plain_matches_pallas_interpret(n, qp, smooth):
     ac, bc = int(jdb.ALPHA_TABLE[qp_c]), int(jdb.BETA_TABLE[qp_c])
     jv, jh = lead(bsv, 4, False), lead(bsh, 4, True)
     jcv, jch = lead(bscv, 2, False), lead(bsch, 2, True)
-    want = deblock_wave_pallas(
+    out = deblock_wave_pallas(
         jnp.asarray([a, b, ac, bc], jnp.int32), jv, _tc0(jv, qp), jh,
         _tc0(jh, qp), jcv, _tc0(jcv, qp_c), jch, _tc0(jch, qp_c),
         yp, up, vp, True)
+    return [np.asarray(p) for p in out]
 
-    # Port side: the meta row of ops/deblock.py:META_COLS.
+
+@pytest.mark.parametrize("n,qp,smooth", STEP_CASES)
+def test_step_plain_matches_pallas_interpret(n, qp, smooth):
+    """N patches with random bS (0..4) per edge and 4x4 block: the Pallas
+    kernel takes eight strength arrays and four scalars, the port one meta
+    row per MB carrying the same values."""
+    qp_c, (yp, up, vp), bsv, bsh = step_case(n, qp, smooth)
+    bscv, bsch = bsv[:, (0, 2)], bsh[:, (0, 2)]
+    a, b = int(jdb.ALPHA_TABLE[qp]), int(jdb.BETA_TABLE[qp])
+    ac, bc = int(jdb.ALPHA_TABLE[qp_c]), int(jdb.BETA_TABLE[qp_c])
+    want = GOLDEN.read(jax_wave_pallas, n, qp, smooth)
+
+    # The meta row of ops/deblock.py:META_COLS.
     meta = np.concatenate([
         bsv.reshape(n, 16), bsh.reshape(n, 16),
         _tc0(bsv, qp).reshape(n, 16), _tc0(bsh, qp).reshape(n, 16),
@@ -99,40 +126,68 @@ def test_step_plain_matches_pallas_interpret(n, qp, smooth):
     assert tdp.deblock_wave_step.launches == before  # the CPU path launches none
     for w, g, name, src in zip(want, got, "yuv", (yp, up, vp)):
         assert g.dtype == torch.uint8
-        np.testing.assert_array_equal(np.asarray(w), g.numpy(), err_msg=name)
+        np.testing.assert_array_equal(w, g.numpy(), err_msg=name)
     if smooth:
         assert (got[0].numpy() != yp).any() and (got[1].numpy() != up).any()
 
 
+def jax_deblock_frame_pallas(y, u, v, qp, qp_c, bs_v, bs_h, R, C):
+    """The JAX deblock_frame under MEDIA_TPU_DEBLOCK_KERNEL=pallas, as
+    uint8 planes."""
+    from media_tpu.pipeline import deblock_apply as jda
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("MEDIA_TPU_DEBLOCK_KERNEL", "pallas")
+        out = jda.deblock_frame(y, u, v, qp, qp_c, bs_v, bs_h, R, C)
+    return [np.asarray(p).astype(np.uint8) for p in out]
+
+
+def intra_case(qp, smooth):
+    R, C = 4, 5
+    return (planes(R, C, seed=qp, smooth=smooth), min(qp, 39),
+            intra_bs_grids_np(R, C))
+
+
+@GOLDEN.recipe(cases=[(q, s) for s in (False, True) for q in (22, 30)])
+def jax_pallas_intra(qp, smooth):
+    (y, u, v), qp_c, (bs_v, bs_h) = intra_case(qp, smooth)
+    return jax_deblock_frame_pallas(y, u, v, qp, qp_c, bs_v, bs_h, 4, 5)
+
+
 @pytest.mark.parametrize("qp", [22, 30])
 @pytest.mark.parametrize("smooth", [False, True])
-def test_wave_route_matches_jax_pallas_intra(qp, smooth, monkeypatch):
-    monkeypatch.setenv("MEDIA_TPU_DEBLOCK_KERNEL", "pallas")
+def test_wave_route_matches_jax_pallas_intra(qp, smooth):
     R, C = 4, 5
-    y, u, v = planes(R, C, seed=qp, smooth=smooth)
-    bs_v, bs_h = intra_bs_grids_np(R, C)
-    qp_c = min(qp, 39)
-    want = jda.deblock_frame(y, u, v, qp, qp_c, bs_v, bs_h, R, C)
+    (y, u, v), qp_c, (bs_v, bs_h) = intra_case(qp, smooth)
+    want = GOLDEN.read(jax_pallas_intra, qp, smooth)
     got = torch_deblock(y, u, v, qp, qp_c, bs_v, bs_h, R, C, "wave")
     for a, b, name in zip(want, got, "yuv"):
-        np.testing.assert_array_equal(np.asarray(a).astype(np.uint8), b,
-                                      err_msg=name)
+        np.testing.assert_array_equal(a, b, err_msg=name)
 
 
-@pytest.mark.parametrize("seed", range(2))
-def test_wave_route_matches_jax_pallas_inter(seed, monkeypatch):
-    monkeypatch.setenv("MEDIA_TPU_DEBLOCK_KERNEL", "pallas")
+def inter_case(seed):
     R, C = 3, 6
     y, u, v = planes(R, C, seed=seed, smooth=True)
     rng = np.random.default_rng(100 + seed)
     nnz = (rng.random((R * 4, C * 4)) < 0.4).astype(np.int32)
     mv = rng.integers(-20, 21, (R, C, 2)).astype(np.int32)
-    bs_v, bs_h = inter_bs_grids_np(nnz, mv)
-    want = jda.deblock_frame(y, u, v, 32, 32, bs_v, bs_h, R, C)
+    return (y, u, v), inter_bs_grids_np(nnz, mv)
+
+
+@GOLDEN.recipe(cases=range(2))
+def jax_pallas_inter(seed):
+    (y, u, v), (bs_v, bs_h) = inter_case(seed)
+    return jax_deblock_frame_pallas(y, u, v, 32, 32, bs_v, bs_h, 3, 6)
+
+
+@pytest.mark.parametrize("seed", range(2))
+def test_wave_route_matches_jax_pallas_inter(seed):
+    R, C = 3, 6
+    (y, u, v), (bs_v, bs_h) = inter_case(seed)
+    want = GOLDEN.read(jax_pallas_inter, seed)
     got = torch_deblock(y, u, v, 32, 32, bs_v, bs_h, R, C, "wave")
     for a, b, name in zip(want, got, "yuv"):
-        np.testing.assert_array_equal(np.asarray(a).astype(np.uint8), b,
-                                      err_msg=name)
+        np.testing.assert_array_equal(a, b, err_msg=name)
     assert (got[0] != y).any()
 
 

@@ -3,11 +3,12 @@
 Streams come from the JAX package's EncoderSession (and, where the port can
 encode them, from the port's own); every plane of every decoded picture must
 equal the JAX TpuDecoder's, through both routes of the in-loop filter. The
-JAX side of the uniform-QP streams runs under
-MEDIA_TPU_DEBLOCK_KERNEL=pallas (its per-wave Pallas kernel in interpret
-mode, a much smaller program to compile than the wave-major scan); the
-adaptive-QP stream needs, and so covers, the wave-major route. Everything is
-integer: tolerance 0. Sizes stay at 64x48 and below.
+JAX side is read from tests/golden_torch/ (the recipes below say what the
+JAX package was asked; tests/jax_golden.py). Its uniform-QP streams were
+decoded under MEDIA_TPU_DEBLOCK_KERNEL=pallas (its per-wave Pallas kernel in
+interpret mode); the adaptive-QP stream needs, and so covers, the
+wave-major route. The JAX package's host parsers and its decoder's refusals
+run live. Everything is integer: tolerance 0. Sizes stay at 64x48 and below.
 """
 
 import dataclasses
@@ -17,9 +18,8 @@ import numpy as np
 import pytest
 import torch
 
+from jax_golden import Digest, Golden
 from media_tpu.core.bitstream import BitReader as JBitReader
-from media_tpu.core.bitstream import BitWriter as JBitWriter
-from media_tpu.pipeline import codec as jcodec
 from media_tpu.pipeline import decoder_tpu as jdec
 from media_tpu.pipeline import slice_coder as jsc
 from media_tpu_torch.core import nal as tnal
@@ -63,17 +63,29 @@ STREAMS = {
 }
 
 
-def _jax_env(monkeypatch, name):
-    if "adaptive" not in name:
-        monkeypatch.setenv("MEDIA_TPU_DEBLOCK_KERNEL", "pallas")
+GOLDEN = Golden(__file__)
 
 
+def frame_record(f) -> dict:
+    return {"frame_num": f.frame_num, "idr": bool(f.idr),
+            **{p: np.asarray(getattr(f, p)) for p in "yuv"}}
+
+
+@GOLDEN.recipe(cases=list(STREAMS))
 def jax_stream(name):
-    """IDR + 3 P from the JAX EncoderSession (call under _jax_env)."""
+    """IDR + 3 P from the JAX EncoderSession and the JAX TpuDecoder's
+    pictures of them (the per-wave Pallas deblock but for adaptive QP)."""
+    from media_tpu.pipeline import codec as jcodec
+
     kw = STREAMS[name]
-    sess = jcodec.EncoderSession(jcodec.EncoderConfig(
-        qp=28, gop_size=30, entropy_mode="host", **kw))
-    return sess.encode_frames(clip(kw["width"], kw["height"], 4))
+    with pytest.MonkeyPatch.context() as mp:
+        if "adaptive" not in name:
+            mp.setenv("MEDIA_TPU_DEBLOCK_KERNEL", "pallas")
+        sess = jcodec.EncoderSession(jcodec.EncoderConfig(
+            qp=28, gop_size=30, entropy_mode="host", **kw))
+        aus = sess.encode_frames(clip(kw["width"], kw["height"], 4))
+        frames = decode_all(jdec.TpuDecoder(), aus)
+    return {"aus": aus, "frames": [frame_record(f) for f in frames]}
 
 
 @functools.lru_cache(maxsize=None)
@@ -94,20 +106,20 @@ def decode_all(dec, aus):
 
 
 def assert_frames_equal(want, got, what):
+    """want: frame_record()s of the JAX decoder's pictures."""
     assert len(want) == len(got) > 0
     for i, (a, b) in enumerate(zip(want, got)):
-        assert (a.frame_num, bool(a.idr)) == (b.frame_num, bool(b.idr))
+        assert (a["frame_num"], a["idr"]) == (b.frame_num, bool(b.idr))
         for p in "yuv":
-            x, y = np.asarray(getattr(a, p)), np.asarray(getattr(b, p))
+            y = np.asarray(getattr(b, p))
             assert y.dtype == np.uint8
-            np.testing.assert_array_equal(x, y, err_msg=f"{what} {i} {p}")
+            np.testing.assert_array_equal(a[p], y, err_msg=f"{what} {i} {p}")
 
 
 @pytest.mark.parametrize("name", list(STREAMS))
-def test_decoder_matches_jax(name, monkeypatch):
-    _jax_env(monkeypatch, name)
-    aus = jax_stream(name)
-    want = decode_all(jdec.TpuDecoder(), aus)
+def test_decoder_matches_jax(name):
+    jax = GOLDEN.read(jax_stream, name)
+    aus, want = jax["aus"], jax["frames"]
     assert len(want) == 4
     dec = tdec.TpuDecoder(device="cpu")
     assert_frames_equal(want, decode_all(dec, aus), name)
@@ -192,10 +204,10 @@ def test_parser_copies_match_originals(partial):
     assert any(np.any(got[k]) for k in ("mv", "luma_levels"))
 
 
-def test_sparse_level_upload_matches_dense_and_jax():
-    """Small pictures take the dense path (their whole level space is under
-    the sparse cap), so the sparse scatter is held here to the dense path
-    and to the JAX package's sparse wrapper on the same symbols."""
+def sparse_case():
+    """The first P slice of the port's stream as the sparse entries take
+    it: (R, C, reference planes, symbols, QP, flat levels, their nonzero
+    indices, a digest of all of them)."""
     aus, _ = port_stream()
     dec = tdec.TpuDecoder(device="cpu")
     dec.decode_annexb(aus[0])
@@ -212,6 +224,33 @@ def test_sparse_level_upload_matches_dense_and_jax():
                            sym["cdc_levels"].reshape(n, 8),
                            sym["cac_levels"].reshape(n, 120)], axis=1).reshape(-1)
     nz = np.flatnonzero(flat)
+    digest = Digest.of(np.concatenate(
+        [flat, sym["mv"].ravel(), [qp]] + [p.numpy().ravel() for p in ref]))
+    return R, C, ref, sym, qp, flat, nz, digest
+
+
+@GOLDEN.recipe
+def jax_sparse_recon():
+    """The JAX package's sparse wrapper on sparse_case(), unfiltered. It
+    takes fixed-size arrays padded with the drop index."""
+    R, C, ref, sym, qp, flat, nz, digest = sparse_case()
+    n = R * C
+    cap = len(nz) + 5
+    idx = np.full(cap, n * 384, np.int32)
+    idx[: len(nz)] = nz
+    vals = np.zeros(cap, np.int16)
+    vals[: len(nz)] = flat[nz]
+    want = jdec._recon_pframe_device_sparse(
+        R, C, *(p.numpy() for p in ref), sym["mv"], (idx, vals), False,
+        np.int32(qp))
+    return {"input": digest, "planes": [np.asarray(a) for a in want]}
+
+
+def test_sparse_level_upload_matches_dense_and_jax():
+    """Small pictures take the dense path (their whole level space is under
+    the sparse cap), so the sparse scatter is held here to the dense path
+    and to the JAX package's sparse wrapper on the same symbols."""
+    R, C, ref, sym, qp, flat, nz, digest = sparse_case()
     assert 0 < len(nz) < len(flat)
     T = torch.as_tensor
     idx_vals = (nz.astype(np.int32), flat[nz].astype(np.int16))
@@ -223,42 +262,73 @@ def test_sparse_level_upload_matches_dense_and_jax():
             R, C, *ref, T(sym["mv"]), tuple(map(T, idx_vals)), deblock, qp)
         for a, b in zip(dense, sparse):
             assert torch.equal(a, b)
-    # The JAX wrapper takes fixed-size arrays padded with the drop index.
-    cap = len(nz) + 5
-    idx = np.full(cap, n * 384, np.int32)
-    idx[: len(nz)] = nz
-    vals = np.zeros(cap, np.int16)
-    vals[: len(nz)] = flat[nz]
-    want = jdec._recon_pframe_device_sparse(
-        R, C, *(p.numpy() for p in ref), sym["mv"], (idx, vals), False,
-        np.int32(qp))
-    for a, b in zip(want, sparse):
-        np.testing.assert_array_equal(np.asarray(a), b.numpy())
+    jax = GOLDEN.read(jax_sparse_recon)
+    assert jax["input"] == digest, "the port's stream is not the recorded one"
+    for a, b in zip(jax["planes"], sparse):
+        np.testing.assert_array_equal(a, b.numpy())
 
 
-@pytest.mark.parametrize("as_bytes", [True, False])
-def test_load_state_continues_a_jax_decode(as_bytes, monkeypatch):
-    """The JAX decoder decodes the first half of a stream; the port's takes
-    over its SPS, PPS and reference planes and decodes the rest."""
-    monkeypatch.setenv("MEDIA_TPU_DEBLOCK_KERNEL", "pallas")
+@GOLDEN.recipe
+def jax_decode_handover():
+    """The JAX decoder on the first half of the port's stream (per-wave
+    Pallas deblock): its SPS and PPS as RBSP bytes and as fields, its
+    reference planes, and its pictures of the second half."""
+    import pytest
+
+    from media_tpu.core.bitstream import BitWriter as JBitWriter
+
     aus, _ = port_stream()
-    jd = jdec.TpuDecoder()
-    decode_all(jd, aus[:2])
-    ref = tuple(np.asarray(p) for p in jd.ref_planes)
-    if as_bytes:
-        sets = []
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("MEDIA_TPU_DEBLOCK_KERNEL", "pallas")
+        jd = jdec.TpuDecoder()
+        decode_all(jd, aus[:2])
+        rec = {"aus": list(aus),
+               "ref": tuple(np.asarray(p) for p in jd.ref_planes),
+               "sps": dataclasses.asdict(jd.sps),
+               "pps": dataclasses.asdict(jd.pps), "rbsp": []}
         for ps in (jd.sps, jd.pps):
             bw = JBitWriter()
             ps.write(bw)
             bw.rbsp_trailing_bits()
-            sets.append(bw.get_bytes())
+            rec["rbsp"].append(bw.get_bytes())
+        rec["frames"] = [frame_record(f) for f in decode_all(jd, aus[2:])]
+    return rec
+
+
+@pytest.mark.parametrize("as_bytes", [True, False])
+def test_load_state_continues_a_jax_decode(as_bytes):
+    """The JAX decoder decodes the first half of a stream; the port's takes
+    over its SPS, PPS and reference planes and decodes the rest."""
+    aus, _ = port_stream()
+    jd = GOLDEN.read(jax_decode_handover)
+    assert list(aus) == jd["aus"]
+    if as_bytes:
+        sets = jd["rbsp"]
     else:
-        sets = [tsyn.SPS(**dataclasses.asdict(jd.sps)),
-                tsyn.PPS(**dataclasses.asdict(jd.pps))]
+        sets = [tsyn.SPS(**jd["sps"]), tsyn.PPS(**jd["pps"])]
     dec = tdec.TpuDecoder(device="cpu")
-    dec.load_state(*sets, ref)
-    assert_frames_equal(decode_all(jd, aus[2:]), decode_all(dec, aus[2:]),
-                        "continued")
+    dec.load_state(*sets, jd["ref"])
+    assert_frames_equal(jd["frames"], decode_all(dec, aus[2:]), "continued")
+
+
+INTRA_KWS = (dict(cabac=True), dict(cabac=True, i4x4=True), dict(i4x4=True))
+
+
+@GOLDEN.recipe
+def jax_intra_streams():
+    """Per INTRA_KWS, the JAX session's IDR of a 48x32 picture and its
+    recon."""
+    from media_tpu.pipeline import codec as jcodec
+
+    out = []
+    for kw in INTRA_KWS:
+        sess = jcodec.EncoderSession(jcodec.EncoderConfig(
+            width=48, height=32, qp=28, gop_size=30, deblock=False,
+            entropy_mode="host", **kw))
+        au = sess.encode_frame(clip(48, 32, 1)[0])
+        out.append({"au": au,
+                    "recon": tuple(np.asarray(p) for p in sess.recon)})
+    return out
 
 
 def test_cabac_and_i4x4_streams_raise_naming_the_roadmap():
@@ -266,17 +336,12 @@ def test_cabac_and_i4x4_streams_raise_naming_the_roadmap():
     stream of I_16x16 macroblocks and I_4x4 streams, CAVLC and CABAC, from
     the JAX session decode to the JAX session's recon, and the I_4x4 streams
     do hold I_4x4 macroblocks."""
-    frames = clip(48, 32, 1)
-    for kw in (dict(cabac=True), dict(cabac=True, i4x4=True),
-               dict(i4x4=True)):
-        sess = jcodec.EncoderSession(jcodec.EncoderConfig(
-            width=48, height=32, qp=28, gop_size=30, deblock=False,
-            entropy_mode="host", **kw))
-        au = sess.encode_frame(frames[0])
+    for kw, jax in zip(INTRA_KWS, GOLDEN.read(jax_intra_streams)):
+        au = jax["au"]
         dec = tdec.TpuDecoder(device="cpu", host_parser="python")
         (frame,) = dec.decode_annexb(au)
-        for got, want in zip((frame.y, frame.u, frame.v), sess.recon):
-            np.testing.assert_array_equal(got, np.asarray(want))
+        for got, want in zip((frame.y, frame.u, frame.v), jax["recon"]):
+            np.testing.assert_array_equal(got, want)
         (again,) = tdec.TpuDecoder(device="cpu").decode_annexb(au)
         np.testing.assert_array_equal(again.y, frame.y)
         rbsp, nal_type, ref_idc, sps, pps = next(iter(_slices([au])))

@@ -4,7 +4,8 @@ Both dispatchers cut the clip into GOPs, encode each from a pristine
 session state (reset_gop_state(g)) in a worker — a thread, or a spawned
 process — and stitch the AUs in presentation order: the bytes of one JAX
 session that applies the same resets GOP by GOP (one run per
-configuration, module-scoped), tolerance 0. At constant QP the thread
+configuration, read from tests/golden_torch/; jax_sequential says what it
+was asked; tests/jax_golden.py), tolerance 0. At constant QP the thread
 dispatcher (two threads) and dispatch_multiprocess (two processes on the
 CPU, prewarm on, no process group), the latter in a child interpreter under
 a timeout, so that a hung spawn fails instead of holding a test worker;
@@ -23,10 +24,9 @@ import pytest
 import torch
 
 import chip_smoke as cs
+from jax_golden import Golden
 from media_tpu.parallel import gop_dispatch as jgd
 from media_tpu.parallel import gop_dispatch_mp as jmp
-from media_tpu.pipeline.codec import EncoderConfig as JaxConfig
-from media_tpu.pipeline.codec import EncoderSession as JaxSession
 from media_tpu_torch.parallel import gop_dispatch as tgd
 from media_tpu_torch.parallel import gop_dispatch_mp as tmp
 from media_tpu_torch.parallel.gop_dispatch import GopDispatcher
@@ -51,14 +51,23 @@ def sequential(session) -> list:
     return out
 
 
+# The JAX side deblocks one wave per scan step: the same bytes from smaller
+# programs.
+GOLDEN = Golden(__file__, env={"MEDIA_TPU_DEBLOCK_UNROLL": "1"})
+
+
+@GOLDEN.recipe(cases=list(CONFIGS))
+def jax_sequential(name):
+    """sequential() through one JAX session of the configuration."""
+    from media_tpu.pipeline.codec import EncoderConfig as JaxConfig
+    from media_tpu.pipeline.codec import EncoderSession as JaxSession
+
+    return sequential(JaxSession(JaxConfig(**CONFIGS[name])))
+
+
 @pytest.fixture(scope="module")
 def jax_aus():
-    # The JAX side deblocks one wave per scan step: the same bytes from
-    # smaller programs.
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setenv("MEDIA_TPU_DEBLOCK_UNROLL", "1")
-        return {name: sequential(JaxSession(JaxConfig(**kw)))
-                for name, kw in CONFIGS.items()}
+    return {name: GOLDEN.read(jax_sequential, name) for name in CONFIGS}
 
 
 @pytest.mark.parametrize("name", list(CONFIGS))

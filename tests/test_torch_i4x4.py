@@ -8,34 +8,25 @@ byte for i4x4 x {CAVLC, CABAC} x {deblock on, off}; and the reference
 operating point at a small size (i4x4 + CBR + CABAC) through encode_frames,
 the staged entry and load_reference_state mid-GOP. Everything is integer:
 tolerance 0, except the rate controller's float32 carry (1e-6 relative).
-The JAX side deblocks one wave per scan step (same bytes, smaller programs).
+The JAX side is read from tests/golden_torch/ (the recipes say what the JAX
+package was asked; tests/jax_golden.py); it deblocked one wave per scan step
+(same bytes, smaller programs).
 """
 
 import itertools
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from media_tpu.ops import intra as jintra
-from media_tpu.pipeline import encoder as jenc
-from media_tpu.pipeline.codec import EncoderConfig as JaxConfig
-from media_tpu.pipeline.codec import EncoderSession as JaxSession
+from jax_golden import Golden
 from media_tpu_torch.ops import intra as tintra
 from media_tpu_torch.pipeline import encoder as tenc
 from media_tpu_torch.pipeline.codec import EncoderConfig, EncoderSession
 from media_tpu_torch.utils import yuv
 
 W, H, QP, K = 64, 48, 28, 2
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _small_jax_deblock():
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setenv("MEDIA_TPU_DEBLOCK_UNROLL", "1")
-        yield
+GOLDEN = Golden(__file__, env={"MEDIA_TPU_DEBLOCK_UNROLL": "1"})
 
 
 def structured_scene(w, h, seed=1, shift=0):
@@ -59,13 +50,12 @@ FRAMES = [yuv.pack_i420(*structured_scene(W, H, shift=2 * t))
 
 # ------------------------------------------------------------ pred_4x4_all
 
-_jax_pred = jax.jit(jintra.pred_4x4_all)
+AVAILS = list(itertools.product([False, True], repeat=3))
+KINDS = ["random", "flat"]
 
 
-@pytest.mark.parametrize("avail", list(itertools.product([False, True],
-                                                         repeat=3)))
-@pytest.mark.parametrize("kind", ["random", "flat"])
-def test_pred_4x4_all_matches_jax(kind, avail):
+def pred_inputs(kind, avail):
+    """top, left, corner and the three availability flags of 96 blocks."""
     rng = np.random.default_rng(5)
     n = 96
     if kind == "random":
@@ -75,14 +65,32 @@ def test_pred_4x4_all_matches_jax(kind, avail):
         level = rng.integers(0, 256, n).astype(np.int32)
         top, left, corner = (np.repeat(level[:, None], 8, 1),
                              np.repeat(level[:, None], 4, 1), level)
-    flags = [np.full(n, a) for a in avail]
-    want_p, want_ok = _jax_pred(*(jnp.asarray(x) for x in
-                                  (top, left, corner, *flags)))
+    return (top, left, corner, *(np.full(n, a) for a in avail))
+
+
+@GOLDEN.recipe(cases=[(k, a) for k in KINDS for a in AVAILS])
+def jax_pred_4x4_all(kind, avail):
+    """The jitted JAX pred_4x4_all: (predictions, mode availability)."""
+    import jax
+    import jax.numpy as jnp
+
+    from media_tpu.ops import intra as jintra
+
+    p, ok = jax.jit(jintra.pred_4x4_all)(
+        *(jnp.asarray(x) for x in pred_inputs(kind, avail)))
+    return np.asarray(p), np.asarray(ok)
+
+
+@pytest.mark.parametrize("avail", AVAILS)
+@pytest.mark.parametrize("kind", KINDS)
+def test_pred_4x4_all_matches_jax(kind, avail):
+    n = 96
+    want_p, want_ok = GOLDEN.read(jax_pred_4x4_all, kind, avail)
     got_p, got_ok = tintra.pred_4x4_all(*(torch.tensor(x) for x in
-                                          (top, left, corner, *flags)))
+                                          pred_inputs(kind, avail)))
     assert got_p.dtype == torch.int32 and got_p.shape == (n, 9, 4, 4)
-    np.testing.assert_array_equal(got_p.numpy(), np.asarray(want_p))
-    np.testing.assert_array_equal(got_ok.numpy(), np.asarray(want_ok))
+    np.testing.assert_array_equal(got_p.numpy(), want_p)
+    np.testing.assert_array_equal(got_ok.numpy(), want_ok)
 
 
 def test_corner_is_not_a_wrapped_top_sample():
@@ -107,14 +115,25 @@ FIELDS = ("is_i4", "modes4", "luma4_levels", "mode16", "chroma_mode",
           "recon_u", "recon_v")
 
 
+@GOLDEN.recipe(cases=list(IFRAME_CASES))
+def jax_encode_iframe(name):
+    """The JAX FrameEncoder's encode_iframe(i4x4=True), field by field."""
+    from media_tpu.pipeline import encoder as jenc
+
+    slice_rows, deblock = IFRAME_CASES[name]
+    je = jenc.FrameEncoder(W, H, slice_rows=slice_rows)
+    r = je.encode_iframe(*structured_scene(W, H), QP, deblock=deblock,
+                         i4x4=True)
+    return {f: np.asarray(getattr(r, f)) for f in FIELDS}
+
+
 @pytest.fixture(scope="module")
 def iframes():
     out = {}
     y, u, v = structured_scene(W, H)
     for name, (slice_rows, deblock) in IFRAME_CASES.items():
-        je = jenc.FrameEncoder(W, H, slice_rows=slice_rows)
         te = tenc.FrameEncoder(W, H, "cpu", slice_rows=slice_rows)
-        out[name] = (je.encode_iframe(y, u, v, QP, deblock=deblock, i4x4=True),
+        out[name] = (GOLDEN.read(jax_encode_iframe, name),
                      te.encode_iframe(y, u, v, QP, deblock=deblock, i4x4=True))
     return out
 
@@ -122,10 +141,9 @@ def iframes():
 @pytest.mark.parametrize("field", FIELDS)
 @pytest.mark.parametrize("case", list(IFRAME_CASES))
 def test_encode_iframe_i4x4_field_matches_jax(iframes, case, field):
-    want, got = (getattr(r, field) for r in iframes[case])
+    want, got = iframes[case][0][field], getattr(iframes[case][1], field)
     if torch.is_tensor(got):
         got = got.numpy()
-    want = np.asarray(want)
     assert got.dtype == want.dtype and got.shape == want.shape
     np.testing.assert_array_equal(got, want, err_msg=field)
 
@@ -148,29 +166,44 @@ def cfg(cls, **kw):
     return cls(width=W, height=H, qp=QP, gop_size=30, i4x4=True, **kw)
 
 
+@GOLDEN.recipe(cases=[(c, d) for c in (False, True) for d in (True, False)])
+def jax_i4x4_session(cabac, deblock):
+    """The JAX I_4x4 session's IDR + K P (host entropy) and its recon."""
+    from media_tpu.pipeline.codec import EncoderConfig as JaxConfig
+    from media_tpu.pipeline.codec import EncoderSession as JaxSession
+
+    kw = dict(cabac=cabac, deblock=deblock, entropy_mode="host")
+    js = JaxSession(cfg(JaxConfig, **kw))
+    aus = [js.encode_frame(FRAMES[0])] + js.encode_frames(FRAMES[1 : 1 + K])
+    return {"aus": aus, "recon": tuple(np.asarray(p) for p in js.recon)}
+
+
 @pytest.mark.parametrize("deblock", [True, False])
 @pytest.mark.parametrize("cabac", [False, True])
 def test_i4x4_session_matches_jax(cabac, deblock):
     kw = dict(cabac=cabac, deblock=deblock, entropy_mode="host")
-    js = JaxSession(cfg(JaxConfig, **kw))
-    want = [js.encode_frame(FRAMES[0])] + js.encode_frames(FRAMES[1 : 1 + K])
+    js = GOLDEN.read(jax_i4x4_session, cabac, deblock)
     for coder in ("native", "python"):
         s = EncoderSession(cfg(EncoderConfig, **kw), device="cpu",
                            host_coder=coder)
         got = [s.encode_frame(FRAMES[0])] + s.encode_frames(FRAMES[1 : 1 + K])
-        assert got == want, coder
-    for a, b in zip(s.recon, js.recon):
-        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+        assert got == js["aus"], coder
+    for a, b in zip(s.recon, js["recon"]):
+        np.testing.assert_array_equal(a.numpy(), b)
 
 
 OP_POINT = dict(cabac=True, cabac_init_idc=1, rc_mode="cbr", bitrate=150_000,
                 framerate=30)
 
 
-@pytest.fixture(scope="module")
-def jax_op_point():
+@GOLDEN.recipe
+def jax_op_point_run():
     """The operating point at a small size from the JAX session: the AUs of
-    IDR + K P, its state after them, and the AUs of the next K P frames."""
+    IDR + K P, its state after them, the AUs of the next K P frames and the
+    final rate state."""
+    from media_tpu.pipeline.codec import EncoderConfig as JaxConfig
+    from media_tpu.pipeline.codec import EncoderSession as JaxSession
+
     s = JaxSession(cfg(JaxConfig, **OP_POINT))
     s.PIPELINE_CHUNK = K
     aus = [s.encode_frame(FRAMES[0])] + s.encode_frames(FRAMES[1 : 1 + K])
@@ -185,6 +218,11 @@ def jax_op_point():
     }
     more = s.encode_frames(FRAMES[1 + K :])
     return aus, state, more, dict(s.rc_state)
+
+
+@pytest.fixture(scope="module")
+def jax_op_point():
+    return GOLDEN.read(jax_op_point_run)
 
 
 def port_op_point():

@@ -5,9 +5,10 @@ The streams come from the port's session (tests/test_torch_i4x4.py holds its
 bytes to the JAX session's): CAVLC and CABAC, one slice and two (with the
 filter kept inside each slice), IDR + P. Both deblock routes and both host
 parsers of the port must give the planes of the JAX TpuDecoder, and picture
-0 and the last one the encoder's recon. The JAX side runs its per-wave
-Pallas deblock kernel in interpret mode (a smaller program than the
-wave-major scan). Tolerance 0.
+0 and the last one the encoder's recon. The JAX TpuDecoder's pictures are
+read from tests/golden_torch/ (jax_decoded says what it was asked;
+tests/jax_golden.py); it ran its per-wave Pallas deblock kernel in
+interpret mode (a smaller program than the wave-major scan). Tolerance 0.
 """
 
 import functools
@@ -15,7 +16,7 @@ import functools
 import numpy as np
 import pytest
 
-from media_tpu.pipeline import decoder_tpu as jdec
+from jax_golden import Golden
 from media_tpu_torch.pipeline import decoder_tpu as tdec
 from media_tpu_torch.pipeline.codec import EncoderConfig, EncoderSession
 from media_tpu_torch.utils import yuv
@@ -71,12 +72,27 @@ def assert_planes(got, want, what):
         np.testing.assert_array_equal(a, b, err_msg=f"{what} {name}")
 
 
-@pytest.mark.parametrize("name", list(STREAMS))
-def test_i4x4_decode_matches_jax_and_the_encoder(name, monkeypatch):
-    monkeypatch.setenv("MEDIA_TPU_DEBLOCK_KERNEL", "pallas")
-    aus, recon_idr, recon_last = port_stream(name)
+GOLDEN = Golden(__file__, env={"MEDIA_TPU_DEBLOCK_KERNEL": "pallas"})
+
+
+@GOLDEN.recipe(cases=list(STREAMS))
+def jax_decoded(name):
+    """The JAX TpuDecoder's pictures of the port's stream (port_stream),
+    and that stream."""
+    from media_tpu.pipeline import decoder_tpu as jdec
+
+    aus = port_stream(name)[0]
     jd = jdec.TpuDecoder()
-    want = [planes(f) for au in aus for f in jd.decode_annexb(au)]
+    return {"aus": aus,
+            "planes": [planes(f) for au in aus for f in jd.decode_annexb(au)]}
+
+
+@pytest.mark.parametrize("name", list(STREAMS))
+def test_i4x4_decode_matches_jax_and_the_encoder(name):
+    aus, recon_idr, recon_last = port_stream(name)
+    jd = GOLDEN.read(jax_decoded, name)
+    assert aus == jd["aus"], "the port's stream is not the recorded one"
+    want = jd["planes"]
     assert len(want) == len(aus)
     dec = tdec.TpuDecoder(device="cpu")
     got = [planes(f) for au in aus for f in dec.decode_annexb(au)]

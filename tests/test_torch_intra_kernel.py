@@ -17,7 +17,9 @@ No card here, so three things stand in for it:
   noise and slice-start rows; whole sessions and decoders through them give
   the plain path's bytes and planes;
 - the same arithmetic against the JAX package's FrameEncoder.encode_iframe
-  and its decoder's I reconstructions, once with I_4x4 and once without.
+  and its decoder's I reconstructions, once with I_4x4 and once without
+  (read from tests/golden_torch/; jax_intra_run says what the JAX package
+  was asked; tests/jax_golden.py).
 
 The plain loops are held to the JAX package by tests/test_torch_i4x4.py,
 test_torch_i4x4_decode.py, test_torch_session.py and test_torch_decoder.py;
@@ -32,13 +34,11 @@ import os
 import subprocess
 import types
 
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from media_tpu.pipeline import decoder_tpu as jdec
-from media_tpu.pipeline import encoder as jenc
+from jax_golden import Golden
 from media_tpu_torch import kernels
 from media_tpu_torch.ops import transform as T
 from media_tpu_torch.pipeline import decoder_tpu as tdec
@@ -438,32 +438,43 @@ def test_sessions_and_decoders_through_the_kernels(emulate, monkeypatch, name,
 # ------------------------------------------------ against the JAX package
 
 JAX_W, JAX_H, JAX_QP = 64, 48, 28
+GOLDEN = Golden(__file__)
+
+
+@GOLDEN.recipe(cases=[False, True])
+def jax_intra_run(i4x4):
+    """The JAX package's encode_iframe (no deblocking) of the structured
+    scene and its decoder's I reconstruction of the result: (fields,
+    decoded planes)."""
+    import jax.numpy as jnp
+
+    from media_tpu.pipeline import decoder_tpu as jdec
+    from media_tpu.pipeline import encoder as jenc
+
+    y, u, v = structured_scene(JAX_W, JAX_H)
+    R, C = JAX_H // 16, JAX_W // 16
+    res = jenc.FrameEncoder(JAX_W, JAX_H).encode_iframe(
+        y, u, v, JAX_QP, deblock=False, i4x4=i4x4)
+    fields = {k: np.array(getattr(res, k))
+              for k in ENC_KEYS + (I4_KEYS if i4x4 else ())}
+    sym = [jnp.asarray(fields[k]) for k in ENC_KEYS[:6]]
+    luma, chroma = (sym[2], sym[3]), (sym[4], sym[5])
+    if i4x4:
+        dec = jdec._recon_iframe_mixed_device(
+            R, C, sym[0], sym[1], luma, chroma,
+            tuple(jnp.asarray(fields[k]) for k in I4_KEYS), JAX_QP, False)
+    else:
+        dec = jdec._recon_iframe_device(R, C, sym[0], sym[1], luma,
+                                        chroma, JAX_QP, False)
+    return fields, [np.asarray(p) for p in dec]
 
 
 @pytest.fixture(scope="module")
 def jax_intra():
-    """The JAX package's encode_iframe (no deblocking) of the structured
-    scene, with and without I_4x4, and its decoder's I reconstruction of
-    each result: {i4x4: (planes, fields as numpy, decoded planes)}."""
-    y, u, v = structured_scene(JAX_W, JAX_H)
-    R, C = JAX_H // 16, JAX_W // 16
-    out = {}
-    for i4x4 in (False, True):
-        res = jenc.FrameEncoder(JAX_W, JAX_H).encode_iframe(
-            y, u, v, JAX_QP, deblock=False, i4x4=i4x4)
-        fields = {k: np.array(getattr(res, k))
-                  for k in ENC_KEYS + (I4_KEYS if i4x4 else ())}
-        sym = [jnp.asarray(fields[k]) for k in ENC_KEYS[:6]]
-        luma, chroma = (sym[2], sym[3]), (sym[4], sym[5])
-        if i4x4:
-            dec = jdec._recon_iframe_mixed_device(
-                R, C, sym[0], sym[1], luma, chroma,
-                tuple(jnp.asarray(fields[k]) for k in I4_KEYS), JAX_QP, False)
-        else:
-            dec = jdec._recon_iframe_device(R, C, sym[0], sym[1], luma,
-                                            chroma, JAX_QP, False)
-        out[i4x4] = ((y, u, v), fields, [np.asarray(p) for p in dec])
-    return out
+    """{i4x4: (planes, fields, decoded planes)} of jax_intra_run."""
+    return {i4x4: (structured_scene(JAX_W, JAX_H),
+                   *GOLDEN.read(jax_intra_run, i4x4))
+            for i4x4 in (False, True)}
 
 
 @pytest.mark.parametrize("i4x4", [False, True], ids=["i16x16", "i4x4"])

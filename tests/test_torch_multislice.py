@@ -5,16 +5,17 @@ num_slices 2 and 3 x {CAVLC, CABAC} x deblock_across_slices {True, False}
 (disable_deblocking_filter_idc 0 and 2) at constant QP; two slices under
 CBR with CABAC (the per-frame host rate loop) and with CAVLC (the device
 loop's QPs, then host entropy at their mean); the slice bounds themselves;
-and media_tpu's ReferenceDecoder on the port's multi-slice stream. One JAX
-session per configuration; the JAX side deblocks one wave per scan step
-(same bytes, smaller programs). Tolerance 0; the host rate loop's floats
-1e-9 relative (Python floats on both sides).
+and media_tpu's ReferenceDecoder (a numpy oracle, live) on the port's
+multi-slice stream. One JAX session per configuration, read from
+tests/golden_torch/ (jax_encode says what it was asked; tests/jax_golden.py);
+the JAX side deblocked one wave per scan step (same bytes, smaller
+programs). Tolerance 0; the host rate loop's floats 1e-9 relative (Python
+floats on both sides).
 
 The port's ShardedEncoderSession (parallel/sharding.py: one MB-row tile a
 slice, each on its own device of a list) at constant QP is held to the
 same JAX sessions: over three CPU "devices" at 64x48 (one MB row a tile)
-against the three-slice, slice-local-deblocking session whose AUs the
-module caches by configuration (no JAX compile of its own), through the
+against the three-slice, slice-local-deblocking session, through the
 device packer and through the overflow route; and over two at 64x64.
 """
 
@@ -23,8 +24,7 @@ import pytest
 import torch
 
 import chip_smoke as cs
-from media_tpu.pipeline.codec import EncoderConfig as JaxConfig
-from media_tpu.pipeline.codec import EncoderSession as JaxSession
+from jax_golden import Golden
 from media_tpu.ref.decoder import ReferenceDecoder
 from media_tpu_torch.core import nal as tnal
 from media_tpu_torch.core import syntax as tsyn
@@ -34,13 +34,7 @@ from media_tpu_torch.pipeline.codec import EncoderConfig, EncoderSession
 from media_tpu_torch.utils import yuv
 
 W, H, QP, N = 64, 48, 28, 3
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _small_jax_deblock():
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setenv("MEDIA_TPU_DEBLOCK_UNROLL", "1")
-        yield
+GOLDEN = Golden(__file__, env={"MEDIA_TPU_DEBLOCK_UNROLL": "1"})
 
 
 def clip(n, seed=0):
@@ -61,26 +55,43 @@ def clip(n, seed=0):
 
 
 FRAMES = clip(N)
-# The JAX sessions' AUs by configuration, for the sharded cases.
-_JAX_AUS: dict = {}
 
 
 def cfg(cls, **kw):
     return cls(width=W, height=H, qp=QP, gop_size=30, **kw)
 
 
-def encode(cls, kw, **session_kw):
-    s = cls(cfg(JaxConfig if cls is JaxSession else EncoderConfig, **kw),
-            **session_kw)
+def encode(cls, kw, cfg_cls=EncoderConfig, **session_kw):
+    s = cls(cfg(cfg_cls, **kw), **session_kw)
     return s, [s.encode_frame(FRAMES[0])] + s.encode_frames(FRAMES[1:])
 
 
-def jax_aus(kw) -> list:
-    """The JAX session's AUs of a configuration, computed once a module."""
-    key = tuple(sorted(kw.items()))
-    if key not in _JAX_AUS:
-        _JAX_AUS[key] = encode(JaxSession, kw)[1]
-    return _JAX_AUS[key]
+SESSION_KWS = [dict(num_slices=n, cabac=cabac, deblock_across_slices=across,
+                    entropy_mode="host")
+               for n in (2, 3) for cabac in (False, True)
+               for across in (True, False)]
+CABAC_CBR = dict(num_slices=2, cabac=True, cabac_init_idc=1, rc_mode="cbr",
+                 bitrate=150_000, framerate=30)
+CAVLC_CBR = dict(num_slices=2, rc_mode="cbr", bitrate=150_000, framerate=30)
+
+
+@GOLDEN.recipe(cases=[tuple(kw.items())
+                      for kw in SESSION_KWS + [CABAC_CBR, CAVLC_CBR]])
+def jax_encode(*items):
+    """The JAX session of a configuration on FRAMES (IDR through
+    encode_frame, the rest through encode_frames): its AUs, slice rows,
+    recon and rate state."""
+    from media_tpu.pipeline.codec import EncoderConfig as JaxConfig
+    from media_tpu.pipeline.codec import EncoderSession as JaxSession
+
+    js, aus = encode(JaxSession, dict(items), JaxConfig)
+    return {"aus": aus, "slice_rows": js.slice_rows,
+            "recon": tuple(np.asarray(p) for p in js.recon),
+            "rc_state": dict(js.rc_state)}
+
+
+def jax_encoded(kw) -> dict:
+    return GOLDEN.read(jax_encode, *kw.items())
 
 
 def slice_headers(aus):
@@ -110,14 +121,15 @@ def slice_headers(aus):
 def test_multislice_session_matches_jax(num_slices, cabac, across):
     kw = dict(num_slices=num_slices, cabac=cabac,
               deblock_across_slices=across, entropy_mode="host")
-    js, want = encode(JaxSession, kw)
-    _JAX_AUS[tuple(sorted(kw.items()))] = want
+    js = jax_encoded(kw)
+    want = js["aus"]
     for coder in ("native", "python"):
         s, got = encode(EncoderSession, kw, device="cpu", host_coder=coder)
         assert got == want, coder
-    assert s.slice_rows == js.slice_rows and len(s.slice_rows) == num_slices
-    for a, b in zip(s.recon, js.recon):
-        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    assert s.slice_rows == [tuple(r) for r in js["slice_rows"]]
+    assert len(s.slice_rows) == num_slices
+    for a, b in zip(s.recon, js["recon"]):
+        np.testing.assert_array_equal(a.numpy(), b)
     # Every picture carries one NAL per slice, with the idc of the config.
     idc = 0 if across else 2
     for heads in slice_headers(got):
@@ -151,25 +163,43 @@ def test_sharded_session_equals_the_jax_multislice_session(overflow):
 
         s.base._frame_encoder.encode_pframes_batch = host_path
     got = [s.encode_frame(FRAMES[0])] + s.encode_frames(FRAMES[1:])
-    assert got == jax_aus(SHARDED3)
+    assert got == jax_encoded(SHARDED3)["aus"]
     assert host_runs == ([N - 1] if overflow else [])
     rs, _ = encode(EncoderSession, SHARDED3, device="cpu")
     for a, b in zip(s.recon, rs.recon):
         assert torch.equal(a, b)
 
 
-def test_two_tile_sharded_session_equals_the_jax_two_slice_session():
-    w, h = 64, 64
-    bufs = cs.clip_i420(w, h, N, seed=5)[0]
-    kw = dict(width=w, height=h, qp=QP, gop_size=30)
-    s = ShardedEncoderSession(EncoderConfig(**kw), devices=["cpu"] * 2)
-    got = [s.encode_frame(bufs[0])] + s.encode_frames(bufs[1:])
+TWO_TILES = dict(width=64, height=64, qp=QP, gop_size=30)
+
+
+def two_tile_clip():
+    return cs.clip_i420(64, 64, N, seed=5)[0]
+
+
+@GOLDEN.recipe
+def jax_two_slice_64x64():
+    """The JAX two-slice session with slice-local deblocking at 64x64: its
+    AUs and recon."""
+    from media_tpu.pipeline.codec import EncoderConfig as JaxConfig
+    from media_tpu.pipeline.codec import EncoderSession as JaxSession
+
+    bufs = two_tile_clip()
     js = JaxSession(JaxConfig(num_slices=2, deblock_across_slices=False,
-                              entropy_mode="host", **kw))
-    assert got == [js.encode_frame(bufs[0])] + js.encode_frames(bufs[1:])
+                              entropy_mode="host", **TWO_TILES))
+    aus = [js.encode_frame(bufs[0])] + js.encode_frames(bufs[1:])
+    return {"aus": aus, "recon": tuple(np.asarray(p) for p in js.recon)}
+
+
+def test_two_tile_sharded_session_equals_the_jax_two_slice_session():
+    bufs = two_tile_clip()
+    s = ShardedEncoderSession(EncoderConfig(**TWO_TILES), devices=["cpu"] * 2)
+    got = [s.encode_frame(bufs[0])] + s.encode_frames(bufs[1:])
+    js = GOLDEN.read(jax_two_slice_64x64)
+    assert got == js["aus"]
     assert [r0 for r0, _ in s.base.slice_rows] == [0, 2]
-    for a, b in zip(s.recon, js.recon):
-        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    for a, b in zip(s.recon, js["recon"]):
+        np.testing.assert_array_equal(a.numpy(), b)
 
 
 def test_slice_bounds_round_as_python_does():
@@ -187,24 +217,21 @@ def test_slice_bounds_round_as_python_does():
 
 
 def test_multislice_cabac_cbr_host_loop_matches_jax():
-    kw = dict(num_slices=2, cabac=True, cabac_init_idc=1, rc_mode="cbr",
-              bitrate=150_000, framerate=30)
-    js, want = encode(JaxSession, kw)
-    s, got = encode(EncoderSession, kw, device="cpu")
-    assert got == want
+    js = jax_encoded(CABAC_CBR)
+    s, got = encode(EncoderSession, CABAC_CBR, device="cpu")
+    assert got == js["aus"]
     for k in ("qp", "buf", "cplx"):
-        assert s.rc_state[k] == pytest.approx(js.rc_state[k], rel=1e-9), k
+        assert s.rc_state[k] == pytest.approx(js["rc_state"][k], rel=1e-9), k
     with pytest.raises(RuntimeError, match="single-slice"):
         s.encode_frames_staged(s.upload_frames(FRAMES[1:]))
 
 
 def test_multislice_cavlc_cbr_takes_the_mean_qp_route():
-    kw = dict(num_slices=2, rc_mode="cbr", bitrate=150_000, framerate=30)
-    js, want = encode(JaxSession, kw)
-    s, got = encode(EncoderSession, kw, device="cpu")
-    assert got == want
+    js = jax_encoded(CAVLC_CBR)
+    s, got = encode(EncoderSession, CAVLC_CBR, device="cpu")
+    assert got == js["aus"]
     for k in ("qp", "buf", "cplx"):
-        assert s.rc_state[k] == pytest.approx(js.rc_state[k], rel=1e-6), k
+        assert s.rc_state[k] == pytest.approx(js["rc_state"][k], rel=1e-6), k
 
 
 @pytest.mark.parametrize("across", [True, False])

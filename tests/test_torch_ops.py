@@ -2,21 +2,19 @@
 
 Transform/quant, intra prediction and costs, full-pel search and half-pel
 planes of the PyTorch port are fed the same seeded integers as the JAX
-functions (run on the CPU, as conftest pins them) and must agree bit for
-bit. The JAX-free copies of constant tables must equal the originals.
+functions and must agree bit for bit; the JAX functions' results (on the
+CPU) are read from tests/golden_torch/ (the recipes say what they were
+asked; tests/jax_golden.py). The JAX-free copies of constant tables must
+equal the originals, read live.
 """
 
 import numpy as np
 import pytest
 import torch
 
-import jax.numpy as jnp
-
+from jax_golden import Golden
 from media_tpu.entropy import device_cavlc as jdc
 from media_tpu.ops import deblock as jdb
-from media_tpu.ops import interp as jinterp
-from media_tpu.ops import intra as jintra
-from media_tpu.ops import me as jme
 from media_tpu.ops import transform as jT
 from media_tpu.pipeline import encoder as jenc
 from media_tpu_torch.entropy import device_cavlc as tdc
@@ -28,8 +26,23 @@ from media_tpu_torch.ops import transform as tT
 from media_tpu_torch.pipeline import encoder as tenc
 
 
+GOLDEN = Golden(__file__)
+
+
 def eq(a, b, msg=""):
     np.testing.assert_array_equal(np.asarray(a), b.numpy(), err_msg=msg)
+
+
+def eq_all(want, got):
+    assert len(want) == len(got)
+    for i, (a, b) in enumerate(zip(want, got)):
+        eq(a, b, str(i))
+
+
+@GOLDEN.recipe
+def jax_chroma_qp():
+    """The JAX package's chroma_qp of QP 0..51."""
+    return [int(jT.chroma_qp(qp)) for qp in range(52)]
 
 
 def test_constant_tables_equal_originals():
@@ -47,45 +60,70 @@ def test_constant_tables_equal_originals():
                                       err_msg=name)
     assert jdc.MAX_LEVEL == tT.MAX_LEVEL
     assert (jdc.BLOCK_WORDS, jdc.HDR_WORDS) == (tdc.BLOCK_WORDS, tdc.HDR_WORDS)
-    for qp in range(52):
-        assert int(jT.chroma_qp(qp)) == int(tT.chroma_qp(qp))
+    assert GOLDEN.read(jax_chroma_qp) == [int(tT.chroma_qp(qp))
+                                          for qp in range(52)]
 
 
-@pytest.mark.parametrize("qp", [0, 17, 30, 44, 51])
-def test_transform_quant_chain(qp):
+def chain_inputs(qp):
+    """Residuals and levels of 64 blocks."""
     rng = np.random.default_rng(qp)
     res = rng.integers(-255, 256, (64, 4, 4)).astype(np.int32)
-    t = torch.as_tensor(res)
-    eq(jT.forward_4x4(res), tT.forward_4x4(t))
-    w = np.array(jT.forward_4x4(res))
-    tw = torch.as_tensor(w)
-    eq(jT.hadamard_4x4(w), tT.hadamard_4x4(tw))
-    eq(jT.hadamard_2x2(w[:, :2, :2]), tT.hadamard_2x2(tw[:, :2, :2]))
-    for intra in (True, False):
-        eq(jT.quant_4x4(w, qp, intra=intra), tT.quant_4x4(tw, qp, intra=intra))
-        eq(jT.quant_dc_2x2(w[:, :2, :2], qp, intra=intra),
-           tT.quant_dc_2x2(tw[:, :2, :2], qp, intra=intra))
-    eq(jT.quant_dc_4x4(w * 4, qp), tT.quant_dc_4x4(tw * 4, qp))
     z = rng.integers(-40, 41, (64, 4, 4)).astype(np.int32)
-    tz = torch.as_tensor(z)
-    eq(jT.dequant_4x4(z, qp), tT.dequant_4x4(tz, qp))
-    eq(jT.dequant_dc_4x4(z, qp), tT.dequant_dc_4x4(tz, qp))
-    eq(jT.dequant_dc_2x2(z[:, :2, :2], qp), tT.dequant_dc_2x2(tz[:, :2, :2], qp))
+    return res, z
+
+
+def chain(m, qp, res, z, w, d, scans):
+    """The chain's steps through transform module m (either package's):
+    the forward transform of res, then each step on its own input; w, d
+    and scans are the JAX package's forward, dequant and zigzag outputs."""
+    out = [m.forward_4x4(res), m.hadamard_4x4(w), m.hadamard_2x2(w[:, :2, :2])]
+    for intra in (True, False):
+        out.append(m.quant_4x4(w, qp, intra=intra))
+        out.append(m.quant_dc_2x2(w[:, :2, :2], qp, intra=intra))
+    out += [m.quant_dc_4x4(w * 4, qp), m.dequant_4x4(z, qp),
+            m.dequant_dc_4x4(z, qp), m.dequant_dc_2x2(z[:, :2, :2], qp),
+            m.inverse_4x4(d), m.zigzag(z), m.inverse_zigzag(scans)]
+    return out
+
+
+CHAIN_QPS = [0, 17, 30, 44, 51]
+
+
+@GOLDEN.recipe(cases=CHAIN_QPS)
+def jax_transform_chain(qp):
+    """chain() through the JAX transforms, and its w, d and scans."""
+    res, z = chain_inputs(qp)
+    w = np.array(jT.forward_4x4(res))
     d = np.array(jT.dequant_4x4(z, qp))
-    eq(jT.inverse_4x4(d), tT.inverse_4x4(torch.as_tensor(d)))
-    eq(jT.zigzag(z), tT.zigzag(tz))
     scans = np.array(jT.zigzag(z))
-    eq(jT.inverse_zigzag(scans), tT.inverse_zigzag(torch.as_tensor(scans)))
+    out = chain(jT, qp, res, z, w, d, scans)
+    return {"w": w, "d": d, "scans": scans,
+            "out": [np.asarray(a) for a in out]}
+
+
+@pytest.mark.parametrize("qp", CHAIN_QPS)
+def test_transform_quant_chain(qp):
+    res, z = chain_inputs(qp)
+    jax = GOLDEN.read(jax_transform_chain, qp)
+    T_ = torch.as_tensor
+    eq_all(jax["out"], chain(tT, qp, T_(res), T_(z), T_(jax["w"]),
+                             T_(jax["d"]), T_(jax["scans"])))
+
+
+CLAMP_W = np.array([[[30000, -30000, 5, 0]] * 4], np.int32)
+
+
+@GOLDEN.recipe
+def jax_quant_clamp():
+    return np.asarray(jT.quant_4x4(CLAMP_W, 0, intra=True))
 
 
 def test_quant_clamps_levels():
-    w = np.array([[[30000, -30000, 5, 0]] * 4], np.int32)
-    eq(jT.quant_4x4(w, 0, intra=True), tT.quant_4x4(torch.as_tensor(w), 0,
-                                                    intra=True))
+    eq(GOLDEN.read(jax_quant_clamp), tT.quant_4x4(torch.as_tensor(CLAMP_W), 0,
+                                                  intra=True))
 
 
-@pytest.mark.parametrize("seed", [0, 1])
-def test_intra_predictions_and_costs(seed):
+def intra_inputs(seed):
     rng = np.random.default_rng(seed)
     n = 24
     top = rng.integers(0, 256, (n, 16)).astype(np.int32)
@@ -94,25 +132,34 @@ def test_intra_predictions_and_costs(seed):
     at = rng.random(n) < 0.6
     al = rng.random(n) < 0.6
     orig = rng.integers(0, 256, (n, 16, 16)).astype(np.int32)
+    return top, left, tl, at, al, orig
+
+
+def intra_chain(m, top, left, tl, at, al, orig):
+    """Intra predictions and costs through intra module m (either
+    package's)."""
     ct, cl, corig = top[:, :8], left[:, :8], orig[:, :8, :8]
-    T_ = torch.as_tensor
-    p16 = jintra.pred_16x16_all(top, left, tl, at, al)
-    tp16 = tintra.pred_16x16_all(T_(top), T_(left), T_(tl), T_(at), T_(al))
-    eq(p16, tp16)
-    eq(jintra.mode_available_16x16(at, al),
-       tintra.mode_available_16x16(T_(at), T_(al)))
-    eq(jintra.satd_cost(p16, orig), tintra.satd_cost(tp16, T_(orig)))
-    eq(jintra.sad_cost(p16, orig), tintra.sad_cost(tp16, T_(orig)))
-    pc = jintra.pred_chroma_all(ct, cl, tl, at, al)
-    tpc = tintra.pred_chroma_all(T_(ct), T_(cl), T_(tl), T_(at), T_(al))
-    eq(pc, tpc)
-    eq(jintra.mode_available_chroma(at, al),
-       tintra.mode_available_chroma(T_(at), T_(al)))
-    eq(jintra.sad_cost(pc, corig), tintra.sad_cost(tpc, T_(corig)))
+    p16 = m.pred_16x16_all(top, left, tl, at, al)
+    pc = m.pred_chroma_all(ct, cl, tl, at, al)
+    return [p16, m.mode_available_16x16(at, al), m.satd_cost(p16, orig),
+            m.sad_cost(p16, orig), pc, m.mode_available_chroma(at, al),
+            m.sad_cost(pc, corig)]
 
 
-@pytest.mark.parametrize("flat", [False, True])
-def test_full_search(flat):
+@GOLDEN.recipe(cases=[0, 1])
+def jax_intra_chain(seed):
+    from media_tpu.ops import intra as jintra
+
+    return [np.asarray(a) for a in intra_chain(jintra, *intra_inputs(seed))]
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_intra_predictions_and_costs(seed):
+    got = intra_chain(tintra, *map(torch.as_tensor, intra_inputs(seed)))
+    eq_all(GOLDEN.read(jax_intra_chain, seed), got)
+
+
+def search_inputs(flat):
     rng = np.random.default_rng(5)
     n, rs = 6, 8
     win = rng.integers(0, 256, (n, 16 + 2 * rs, 16 + 2 * rs)).astype(np.int32)
@@ -120,15 +167,41 @@ def test_full_search(flat):
         win = (win // 128) * 100
     cur = win[:, 5 : 5 + 16, 11 : 11 + 16].copy()
     cur[0] = rng.integers(0, 256, (16, 16))
+    return cur, win, rs
+
+
+@GOLDEN.recipe(cases=[False, True])
+def jax_full_search(flat):
+    import jax.numpy as jnp
+
+    from media_tpu.ops import me as jme
+
+    cur, win, rs = search_inputs(flat)
     mv, cost = jme.full_search(jnp.asarray(cur), jnp.asarray(win), rs)
+    return np.asarray(mv), np.asarray(cost)
+
+
+@pytest.mark.parametrize("flat", [False, True])
+def test_full_search(flat):
+    cur, win, rs = search_inputs(flat)
+    mv, cost = GOLDEN.read(jax_full_search, flat)
     tmv, tcost = tme.full_search(torch.as_tensor(cur), torch.as_tensor(win), rs)
     eq(mv, tmv)
     eq(cost, tcost)
 
 
-def test_half_pel_planes():
+def half_pel_ref():
     rng = np.random.default_rng(9)
-    ref = rng.integers(0, 256, (40, 56)).astype(np.int32)
-    for a, b in zip(jinterp.half_pel_planes(ref),
-                    tinterp.half_pel_planes(torch.as_tensor(ref))):
-        eq(a, b)
+    return rng.integers(0, 256, (40, 56)).astype(np.int32)
+
+
+@GOLDEN.recipe
+def jax_half_pel_planes():
+    from media_tpu.ops import interp as jinterp
+
+    return [np.asarray(p) for p in jinterp.half_pel_planes(half_pel_ref())]
+
+
+def test_half_pel_planes():
+    want = GOLDEN.read(jax_half_pel_planes)
+    eq_all(want, tinterp.half_pel_planes(torch.as_tensor(half_pel_ref())))

@@ -7,19 +7,19 @@ writers against media_tpu (JAX on the CPU): exact equality.
   sentinel at a tight cap), and the bytes after merge_slice_data;
 - the JAX-free copies of the I- and P-slice writers and of
   merge_slice_data: the same bytes as the originals.
+
+The jitted JAX functions' results are read from tests/golden_torch/ (the
+recipes say what they were asked; tests/jax_golden.py); the JAX package's
+host writers and merge_slice_data run live.
 """
 
-import functools
-
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from jax_golden import Golden
 from media_tpu.core.bitstream import BitWriter
 from media_tpu.entropy import device_cavlc as jdc
-from media_tpu.pipeline import pframe_core as jpc
 from media_tpu.pipeline import slice_coder as jsc
 from media_tpu_torch.entropy import device_cavlc as tdc
 from media_tpu_torch.ops.pad import edge_pad
@@ -27,6 +27,7 @@ from media_tpu_torch.pipeline import pframe_core as tpc
 from media_tpu_torch.pipeline import slice_coder as tsc
 
 RS = 8
+GOLDEN = Golden(__file__)
 
 
 def moving_planes(R, C, seed):
@@ -47,33 +48,57 @@ def moving_planes(R, C, seed):
     return out
 
 
-@functools.partial(jax.jit, static_argnums=(8, 9, 10))
-def _jax_core(y, u, v, ry, ru, rv, qp, qp_c, rs, R, C):
-    hy, hc = rs + jpc.INTERP_HALO, rs // 2 + 2
-    ext = [jnp.pad(p.astype(jnp.int32), ((h, h), (0, 0)), mode="edge")
-           for p, h in ((ry, hy), (ru, hc), (rv, hc))]
-    return jpc.local_pframe_core(y.astype(jnp.int32), u.astype(jnp.int32),
-                                 v.astype(jnp.int32), *ext, qp, qp_c, rs, R, C)
+CORE_KEYS = ("symbols", "recon_y", "recon_u", "recon_v", "sad_total")
+
+
+@GOLDEN.recipe(cases=[(30, 0), (22, 1)])
+def jax_core(qp, seed):
+    """The JAX package's jitted local_pframe_core on moving_planes() with
+    edge-padded references at search range RS: its chroma QP, results and
+    unpacked symbols."""
+    import functools
+
+    import jax
+    import jax.numpy as jnp
+
+    from media_tpu.pipeline import pframe_core as jpc
+
+    @functools.partial(jax.jit, static_argnums=(8, 9, 10))
+    def core(y, u, v, ry, ru, rv, qp, qp_c, rs, R, C):
+        hy, hc = rs + jpc.INTERP_HALO, rs // 2 + 2
+        ext = [jnp.pad(p.astype(jnp.int32), ((h, h), (0, 0)), mode="edge")
+               for p, h in ((ry, hy), (ru, hc), (rv, hc))]
+        return jpc.local_pframe_core(y.astype(jnp.int32), u.astype(jnp.int32),
+                                     v.astype(jnp.int32), *ext, qp, qp_c, rs,
+                                     R, C)
+
+    qp_c = int(np.asarray(jpc.T.chroma_qp(qp)))
+    (ry, ru, rv), (y, u, v) = moving_planes(3, 4, seed)
+    out = core(y, u, v, ry, ru, rv, qp, qp_c, RS, 3, 4)
+    out = {k: np.asarray(out[k]) for k in CORE_KEYS}
+    return {"qp_c": qp_c, "out": out,
+            "fields": dict(jpc.unpack_symbols(out["symbols"]))}
 
 
 @pytest.mark.parametrize("qp,seed", [(30, 0), (22, 1)])
 def test_local_pframe_core_matches_jax(qp, seed):
     R, C = 3, 4
-    qp_c = int(np.asarray(jpc.T.chroma_qp(qp)))
+    jax = GOLDEN.read(jax_core, qp, seed)
+    qp_c, want = jax["qp_c"], jax["out"]
+    assert qp_c == int(tpc.T.chroma_qp(qp))
     (ry, ru, rv), (y, u, v) = moving_planes(R, C, seed)
-    want = _jax_core(y, u, v, ry, ru, rv, qp, qp_c, RS, R, C)
     hy, hc = RS + tpc.INTERP_HALO, RS // 2 + 2
     t = [torch.as_tensor(p).to(torch.int32) for p in (y, u, v, ry, ru, rv)]
     got = tpc.local_pframe_core(
         *t[:3], edge_pad(t[3], hy, hy, 0, 0), edge_pad(t[4], hc, hc, 0, 0),
         edge_pad(t[5], hc, hc, 0, 0), qp, qp_c, RS, R, C)
     assert got["symbols"].dtype == torch.int16
-    for key in ("symbols", "recon_y", "recon_u", "recon_v", "sad_total"):
-        np.testing.assert_array_equal(np.asarray(want[key]),
-                                      got[key].numpy(), err_msg=key)
-    assert np.abs(np.asarray(want["symbols"])[..., :2]).max() > 0  # real MVs
+    for key in CORE_KEYS:
+        np.testing.assert_array_equal(want[key], got[key].numpy(),
+                                      err_msg=key)
+    assert np.abs(want["symbols"][..., :2]).max() > 0  # real MVs
     fields = tpc.unpack_symbols(got["symbols"])
-    for k, val in jpc.unpack_symbols(np.asarray(want["symbols"])).items():
+    for k, val in jax["fields"].items():
         np.testing.assert_array_equal(val, fields[k], err_msg=k)
 
 
@@ -95,11 +120,6 @@ def random_symbols(R, C, seed, density=6, big_levels=False):
     return tuple(a.astype(np.int32) for a in (mv, luma, cdc, cac))
 
 
-@functools.partial(jax.jit, static_argnums=(4, 5))
-def _jax_pack(mv, luma, cdc, cac, cap, ratio):
-    return jdc.pack_pslice_device(mv, luma, cdc, cac, cap, ratio=ratio)
-
-
 def _host_bytes(write, **kw):
     bw = BitWriter()
     write(bw, **kw)
@@ -107,25 +127,48 @@ def _host_bytes(write, **kw):
     return bw.get_bytes()
 
 
-@pytest.mark.parametrize("seed,shape,cap,big", [
+PACK_CASES = [
     (0, (4, 6), 2048, False),
     (1, (5, 1), 2048, False),
     (2, (4, 6), 2048, True),   # 28-bit level escapes, dense blocks
     (3, (4, 6), 8, False),     # cap far below the stream: overflow sentinel
-])
+]
+
+
+def pack_case(seed, shape, cap, big):
+    """The symbols and the packer's ratio of a case."""
+    sym = random_symbols(*shape, seed, density=2 if big else 6,
+                         big_levels=big)
+    return sym, 1.0 if big else 0.25
+
+
+@GOLDEN.recipe(cases=PACK_CASES)
+def jax_pack(seed, shape, cap, big):
+    """The JAX package's jitted pack_pslice_device: (stream words, bits)."""
+    import functools
+
+    import jax
+    import jax.numpy as jnp
+
+    sym, ratio = pack_case(seed, shape, cap, big)
+    pack = functools.partial(jax.jit, static_argnums=(4, 5))(
+        lambda mv, luma, cdc, cac, cap, ratio:
+        jdc.pack_pslice_device(mv, luma, cdc, cac, cap, ratio=ratio))
+    stream, bits = pack(*map(jnp.asarray, sym), cap, ratio)
+    return np.asarray(stream), int(bits)
+
+
+@pytest.mark.parametrize("seed,shape,cap,big", PACK_CASES)
 def test_pack_pslice_matches_jax(seed, shape, cap, big):
-    R, C = shape
-    sym = random_symbols(R, C, seed, density=2 if big else 6, big_levels=big)
-    ratio = 1.0 if big else 0.25
-    stream, bits = _jax_pack(*map(jnp.asarray, sym), cap, ratio)
+    sym, ratio = pack_case(seed, shape, cap, big)
+    stream, bits = GOLDEN.read(jax_pack, seed, shape, cap, big)
     tstream, tbits = tdc.pack_pslice_device(*map(torch.as_tensor, sym), cap,
                                             ratio=ratio)
     assert int(bits) == int(tbits)
     if int(bits) > cap * 32:
         assert cap == 8  # only the tight cap may overflow
         return
-    np.testing.assert_array_equal(np.asarray(stream),
-                                  tstream.numpy().astype(np.uint32))
+    np.testing.assert_array_equal(stream, tstream.numpy().astype(np.uint32))
     bw = BitWriter()
     tdc.merge_slice_data(bw, tstream.numpy(), int(tbits))
     mv, luma, cdc, cac = sym

@@ -18,7 +18,8 @@ No card here, so three things stand in for it:
   real halo rows; and the packed helpers the arithmetic is made of (sad4,
   avg4, align4) against byte-by-byte numpy;
 - the same arithmetic against the JAX package's local_pframe_core, once per
-  QP form.
+  QP form (its results read from tests/golden_torch/; jax_local_pframe_core
+  says what it was asked; tests/jax_golden.py).
 
 The plain versions are held to the JAX package by tests/test_torch_pframe.py
 and tests/test_torch_ops.py; the kernel to the plain versions on the card by
@@ -27,21 +28,18 @@ tests/test_torch_cuda.py and chip_smoke.py.
 
 import contextlib
 import ctypes
-import functools
 import hashlib
 import os
 import subprocess
 import types
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from chip_smoke import (PCORE_KINDS, PCORE_RANGES, pcore_planes, pcore_qps,
                         pcore_whole_u8)
-from media_tpu.pipeline import pframe_core as jpc
+from jax_golden import Golden
 from media_tpu_torch import kernels
 from media_tpu_torch.pipeline import pframe_core as tpc
 
@@ -446,31 +444,38 @@ def test_int32_entry_with_samples_at_0_and_255(emulate, rs):
 # ------------------------------------------------ against the JAX package
 
 
-@functools.partial(jax.jit, static_argnums=(8, 9, 10))
-def _jax_core(y, u, v, ry, ru, rv, qp, qp_c, rs, R, C):
-    return jpc.local_pframe_core(y, u, v, ry, ru, rv, qp, qp_c, rs, R, C)
-
-
 JAX_R, JAX_C, JAX_RS = 3, 4, 8
 JAX_FORMS = ("int", "0d", "map")
+GOLDEN = Golden(__file__)
+
+
+@GOLDEN.recipe(cases=JAX_FORMS)
+def jax_local_pframe_core(form):
+    """The JAX package's jitted local_pframe_core on one moving picture
+    with the QP in the form named."""
+    import jax
+    import jax.numpy as jnp
+
+    from media_tpu.pipeline import pframe_core as jpc
+
+    R, C, rs = JAX_R, JAX_C, JAX_RS
+    planes = pcore_planes(R, C, rs, 11, "moving")
+    qp, qp_c = pcore_qps(form, R * C, 11)
+    jq = [q if isinstance(q, int) else jnp.asarray(q.numpy())
+          for q in (qp, qp_c)]
+    core = jax.jit(jpc.local_pframe_core, static_argnums=(8, 9, 10))
+    res = core(*(jnp.asarray(p.numpy()) for p in planes), *jq, rs, R, C)
+    return {k: np.asarray(res[k]) for k in KEYS}
 
 
 @pytest.fixture(scope="module")
 def jax_cores():
-    """The JAX package's local_pframe_core on one moving picture with the
-    QP in each form: {form: (planes, qps, result as numpy)}."""
+    """{form: (planes, qps, the JAX result)} of jax_local_pframe_core."""
     R, C, rs = JAX_R, JAX_C, JAX_RS
     planes = pcore_planes(R, C, rs, 11, "moving")
-    out = {}
-    for form in JAX_FORMS:
-        qp, qp_c = pcore_qps(form, R * C, 11)
-        jq = [q if isinstance(q, int) else jnp.asarray(q.numpy())
-              for q in (qp, qp_c)]
-        res = _jax_core(*(jnp.asarray(p.numpy()) for p in planes), *jq, rs, R,
-                        C)
-        out[form] = (planes, (qp, qp_c),
-                     {k: np.asarray(res[k]) for k in KEYS})
-    return out
+    return {form: (planes, pcore_qps(form, R * C, 11),
+                   GOLDEN.read(jax_local_pframe_core, form))
+            for form in JAX_FORMS}
 
 
 @pytest.mark.parametrize("form", JAX_FORMS)

@@ -6,7 +6,10 @@ every entry point (encode_frame, encode_frames with device or host entropy,
 upload_frames + encode_frames_staged, the overflow retry and the host
 fallback), its recon must be what ReferenceDecoder decodes, and it must
 continue a GOP from the JAX session's reference via load_reference_state.
-A subprocess with `jax` blocked imports the port and encodes.
+The JAX side is read from tests/golden_torch/ (the recipes say what the JAX
+package was asked; tests/jax_golden.py); media_tpu's ReferenceDecoder, a
+numpy oracle, runs live. A subprocess with `jax` blocked imports the port
+and encodes.
 """
 
 import hashlib
@@ -18,8 +21,7 @@ import numpy as np
 import pytest
 import torch
 
-from media_tpu.pipeline.codec import EncoderConfig as JaxConfig
-from media_tpu.pipeline.codec import EncoderSession as JaxSession
+from jax_golden import Golden
 from media_tpu.ref.decoder import ReferenceDecoder
 from media_tpu.utils import yuv
 from media_tpu_torch.pipeline import encoder as tenc
@@ -52,25 +54,34 @@ def cfg(cls, **kw):
     return cls(width=W, height=H, qp=QP, gop_size=30, **kw)
 
 
-@pytest.fixture(scope="module")
-def jax_gop():
+# One deblocking wave per scan step: same bytes, smaller programs.
+GOLDEN = Golden(__file__, env={"MEDIA_TPU_DEBLOCK_UNROLL": "1"})
+
+
+@GOLDEN.recipe
+def jax_gop_run():
     """The JAX session's AUs for IDR + K P, its state after them, and the
     AUs of the next K P frames."""
-    with pytest.MonkeyPatch.context() as mp:
-        # One deblocking wave per scan step: same bytes, smaller programs.
-        mp.setenv("MEDIA_TPU_DEBLOCK_UNROLL", "1")
-        s = JaxSession(cfg(JaxConfig, entropy_mode="device"))
-        s.PIPELINE_CHUNK = K
-        aus = [s.encode_frame(FRAMES[0])] + s.encode_frames(FRAMES[1 : 1 + K])
-        state = {
-            "recon": tuple(np.asarray(p) for p in s.recon),
-            "frame_idx": s.frame_idx,
-            "frame_idx_of_idr": s.frame_idx_of_idr,
-            "idr_pic_id": s.idr_pic_id,
-            "_bits_hwm": s._bits_hwm,
-        }
-        more = s.encode_frames(FRAMES[1 + K :])
+    from media_tpu.pipeline.codec import EncoderConfig as JaxConfig
+    from media_tpu.pipeline.codec import EncoderSession as JaxSession
+
+    s = JaxSession(cfg(JaxConfig, entropy_mode="device"))
+    s.PIPELINE_CHUNK = K
+    aus = [s.encode_frame(FRAMES[0])] + s.encode_frames(FRAMES[1 : 1 + K])
+    state = {
+        "recon": tuple(np.asarray(p) for p in s.recon),
+        "frame_idx": s.frame_idx,
+        "frame_idx_of_idr": s.frame_idx_of_idr,
+        "idr_pic_id": s.idr_pic_id,
+        "_bits_hwm": s._bits_hwm,
+    }
+    more = s.encode_frames(FRAMES[1 + K :])
     return aus, state, more
+
+
+@pytest.fixture(scope="module")
+def jax_gop():
+    return GOLDEN.read(jax_gop_run)
 
 
 def port_session(**kw):
@@ -166,23 +177,37 @@ def test_cuda_device_raises_without_cuda():
         EncoderSession(cfg(EncoderConfig), device="cuda")
 
 
-@pytest.mark.parametrize("field,value", [
-    ("cabac", True), ("rc_mode", "cbr"), ("i4x4", True), ("num_slices", 2),
-    ("b_frames", 1), ("lossless", True), ("adaptive_qp", True),
-])
+FIELDS = [("cabac", True), ("rc_mode", "cbr"), ("i4x4", True),
+          ("num_slices", 2), ("b_frames", 1), ("lossless", True),
+          ("adaptive_qp", True)]
+
+
+def field_kw(field, value):
+    kw = {field: value}
+    if field == "rc_mode":
+        kw.update(bitrate=150_000, framerate=30)
+    return kw
+
+
+@GOLDEN.recipe(cases=FIELDS)
+def jax_first_two_aus(field, value):
+    """The JAX session's first two AUs, one encode_frame each, with one
+    field set."""
+    from media_tpu.pipeline.codec import EncoderConfig as JaxConfig
+    from media_tpu.pipeline.codec import EncoderSession as JaxSession
+
+    js = JaxSession(cfg(JaxConfig, **field_kw(field, value)))
+    return [js.encode_frame(b) for b in FRAMES[:2]]
+
+
+@pytest.mark.parametrize("field,value", FIELDS)
 def test_configs_outside_the_slice_raise(field, value):
     """No configuration of the JAX session is outside the port any more (the
     name is the test's old one): each of these fields constructs a session
     whose first two access units equal the JAX session's."""
-    kw = {field: value}
-    if field == "rc_mode":
-        kw.update(bitrate=150_000, framerate=30)
-    with pytest.MonkeyPatch.context() as mp:
-        # One deblocking wave per scan step: same bytes, smaller programs.
-        mp.setenv("MEDIA_TPU_DEBLOCK_UNROLL", "1")
-        js = JaxSession(cfg(JaxConfig, **kw))
-        want = [js.encode_frame(b) for b in FRAMES[:2]]
-    s = EncoderSession(cfg(EncoderConfig, **kw), device="cpu")
+    want = GOLDEN.read(jax_first_two_aus, field, value)
+    s = EncoderSession(cfg(EncoderConfig, **field_kw(field, value)),
+                       device="cpu")
     assert [s.encode_frame(b) for b in FRAMES[:2]] == want
     assert s.pps.entropy_coding_mode == int(field == "cabac")
 

@@ -5,9 +5,10 @@ JAX package's on the conftest's virtual CPU devices. Held with tolerance 0:
 make_sharded_pframe_step's symbols, recon and SAD sum (n = 2 at 64x32);
 ShardedEncoderSession under CBR with adaptive_qp, deblocking and an I_4x4
 IDR over two tiles at 64x32 (every AU digest, QP and tile bit count; the
-final rate state within 1e-6), against constants recorded from the JAX
-ShardedEncoderSession, which the slow twin recomputes live (about a minute
-of XLA on a CPU), and the same run through the doubled-cap route. The
+final rate state within 1e-6), against the JAX ShardedEncoderSession's run
+read from tests/golden_torch/ (the recipes say what the JAX package was
+asked; tests/jax_golden.py), which the slow twin recomputes live (about a
+minute of XLA on a CPU), and the same run through the doubled-cap route. The
 constant-QP session is held to the JAX multi-slice session in
 tests/test_torch_multislice.py, which already runs it. Then the port's
 deliberate differences, each beside the JAX behaviour it avoids: a CABAC or
@@ -22,6 +23,7 @@ import pytest
 import torch
 
 import chip_smoke as cs
+from jax_golden import Golden
 from media_tpu.parallel import sharding as jsharding
 from media_tpu.pipeline.codec import EncoderConfig as JaxConfig
 from media_tpu_torch.api import encoder_api as tenc
@@ -44,27 +46,7 @@ CBR_KW = dict(width=W, height=H, qp=30, gop_size=30, rc_mode="cbr",
 # chip_smoke.sharded_record of the JAX ShardedEncoderSession(CBR_KW) over
 # two devices on FRAMES (IDR, then 4 P in one encode_frames call);
 # test_cbr_constants_equal_a_live_jax_run recomputes it.
-CBR_WANT = {
-    "au_sha256": [
-        "dd13118969da9ba9a48cb27e1f7a702d5de580787c60b24829433ec9fba4ada7",
-        "949f682d4417a2567876ab21379aa25b371393754b5742afe648e7ab5da1a8be",
-        "5f1d0154a5ba2f2feb8727f8f6ed47d9cbe44673986b9df16a9914657debcc7c",
-        "8d6dcecbdc9e3c958b8961ff38be37afacb766815c4520adcf7b73ca5c29c6b5",
-        "b6912a903c9cdb5bc39a399328f128001f351ea12ff720f277040a30df1746b0",
-    ],
-    "au_bytes": [906, 324, 442, 377, 979],
-    "bits": [[1224, 1221], [1605, 1780], [1364, 1498], [3711, 3964]],
-    "qps": [25, 23, 23, 21],
-    "rc_final": {"qp": 21.632219314575195, "buf": -3051.666259765625,
-                 "cplx": 48375.7265625},
-}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _small_jax_deblock():
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setenv("MEDIA_TPU_DEBLOCK_UNROLL", "1")
-        yield
+GOLDEN = Golden(__file__, env={"MEDIA_TPU_DEBLOCK_UNROLL": "1"})
 
 
 def drive(sess) -> dict:
@@ -82,8 +64,12 @@ def check_cbr_record(got: dict, want: dict) -> None:
         assert got["rc_final"][k] == pytest.approx(b, rel=1e-6, abs=1e-6), k
 
 
-def test_sharded_pframe_step_equals_jax():
-    h, w, n, qp = 32, 64, 2, 28
+STEP_H, STEP_W, STEP_N, STEP_QP = 32, 64, 2, 28
+
+
+def step_planes():
+    """(current, reference) planes of a 64x32 picture."""
+    h, w = STEP_H, STEP_W
     rng = np.random.default_rng(3)
     big = rng.integers(0, 256, (h + 32, w + 32)).astype(np.int32)
     big = ((big + np.roll(big, 1, 0) + np.roll(big, 1, 1)) // 3).astype(
@@ -91,25 +77,56 @@ def test_sharded_pframe_step_equals_jax():
     ref = (big[:h, :w], big[: h // 2, : w // 2] // 2 + 60,
            big[: h // 2, : w // 2] // 3 + 80)
     cur = (big[3 : h + 3, 5 : w + 5], ref[1].copy(), ref[2].copy())
+    return cur, ref
+
+
+@GOLDEN.recipe
+def jax_sharded_pframe_step():
+    """The JAX make_sharded_pframe_step over two virtual CPU devices."""
+    cur, ref = step_planes()
+    qp_c = int(chroma_qp(STEP_QP))
+    out = jsharding.make_sharded_pframe_step(
+        jsharding.make_tile_mesh(STEP_N), STEP_H, STEP_W)(
+            *cur, *ref, STEP_QP, qp_c)
+    return {k: np.asarray(out[k]) for k in ("symbols", "recon_y", "recon_u",
+                                            "recon_v", "sad_total")}
+
+
+def test_sharded_pframe_step_equals_jax():
+    n, qp = STEP_N, STEP_QP
+    cur, ref = step_planes()
     qp_c = int(chroma_qp(qp))
-    want = jsharding.make_sharded_pframe_step(
-        jsharding.make_tile_mesh(n), h, w)(*cur, *ref, qp, qp_c)
-    got = make_sharded_pframe_step(make_tile_mesh(devices=["cpu"] * n), h,
-                                   w)(*cur, *ref, qp, qp_c)
-    np.testing.assert_array_equal(got["symbols"].numpy(),
-                                  np.asarray(want["symbols"]))
+    want = GOLDEN.read(jax_sharded_pframe_step)
+    got = make_sharded_pframe_step(make_tile_mesh(devices=["cpu"] * n),
+                                   STEP_H, STEP_W)(*cur, *ref, qp, qp_c)
+    np.testing.assert_array_equal(got["symbols"].numpy(), want["symbols"])
     for k in ("recon_y", "recon_u", "recon_v"):
         assert len(got[k]) == n
-        np.testing.assert_array_equal(torch.cat(got[k]).numpy(),
-                                      np.asarray(want[k]))
+        np.testing.assert_array_equal(torch.cat(got[k]).numpy(), want[k])
     assert got["sad_total"].dtype == torch.int32
-    assert int(got["sad_total"]) == int(want["sad_total"])
+    assert int(got["sad_total"]) == want["sad_total"].item()
+
+
+def jax_cbr_drive() -> dict:
+    """drive() of the JAX ShardedEncoderSession(CBR_KW) over two devices,
+    without its AUs."""
+    js = jsharding.ShardedEncoderSession(JaxConfig(**CBR_KW), n_devices=2)
+    run = drive(js)
+    run.pop("aus")
+    return run
+
+
+@GOLDEN.recipe
+def jax_cbr_run():
+    """chip_smoke.sharded_record of jax_cbr_drive: IDR, then 4 P in one
+    encode_frames call."""
+    return jax_cbr_drive()
 
 
 def test_cbr_aq_i4x4_session_equals_the_recorded_jax_run():
     s = ShardedEncoderSession(EncoderConfig(**CBR_KW), devices=["cpu"] * 2)
     got = drive(s)
-    check_cbr_record(got, CBR_WANT)
+    check_cbr_record(got, GOLDEN.read(jax_cbr_run))
     assert len(s._cbr_fns) == 1  # no retry at a doubled cap
     # The stream decodes to the session's reconstruction.
     dec = TpuDecoder(device="cpu")
@@ -125,7 +142,7 @@ def test_cbr_doubled_cap_route_gives_the_same_run():
     same state at 2x, 4x, ... the cap until it fits, with the same output."""
     s = ShardedEncoderSession(EncoderConfig(**CBR_KW), devices=["cpu"] * 2)
     s.cap_local = 32
-    check_cbr_record(drive(s), CBR_WANT)
+    check_cbr_record(drive(s), GOLDEN.read(jax_cbr_run))
     caps = sorted(s._cbr_fns)
     assert caps[0] == 32 and len(caps) >= 3
     assert caps == [32 * 2 ** i for i in range(len(caps))]
@@ -133,11 +150,12 @@ def test_cbr_doubled_cap_route_gives_the_same_run():
 
 @pytest.mark.slow
 def test_cbr_constants_equal_a_live_jax_run():
-    js = jsharding.ShardedEncoderSession(JaxConfig(**CBR_KW), n_devices=2)
-    want = drive(js)
-    want.pop("aus")
-    assert want == {**CBR_WANT, "rc_final": want["rc_final"]}
-    check_cbr_record(want, CBR_WANT)
+    recorded = GOLDEN.read(jax_cbr_run)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("MEDIA_TPU_DEBLOCK_UNROLL", "1")
+        want = jax_cbr_drive()
+    assert want == {**recorded, "rc_final": want["rc_final"]}
+    check_cbr_record(want, recorded)
 
 
 @pytest.mark.parametrize("field", ["cabac", "lossless"])
@@ -148,7 +166,7 @@ def test_cabac_and_lossless_are_refused(field):
 
 
 @pytest.mark.slow
-def test_jax_sharded_cabac_and_lossless_streams_break():
+def test_jax_sharded_cabac_and_lossless_streams_break(monkeypatch):
     """What the port refuses: the JAX ShardedEncoderSession with
     cabac=True writes CAVLC P slice data under a CABAC PPS (its IDR equals
     the single-device slice-local session's, its P AUs do not, and the JAX
@@ -158,6 +176,7 @@ def test_jax_sharded_cabac_and_lossless_streams_break():
     from media_tpu.pipeline.decoder_tpu import TpuDecoder as JaxDecoder
     from media_tpu.ref.decoder import ReferenceDecoder
 
+    monkeypatch.setenv("MEDIA_TPU_DEBLOCK_UNROLL", "1")
     kw = dict(width=W, height=H, qp=30, gop_size=30)
     bufs = FRAMES[:3]
     sharded = jsharding.ShardedEncoderSession(JaxConfig(cabac=True, **kw),

@@ -42,6 +42,20 @@ the existing file and leaves every other entry as it is.
 
 A full run takes some tens of minutes of CPU time (most of it XLA compiling
 the 1080p programs).
+
+--tests records instead the JAX side of the port's CPU tests: every
+tests/test_torch_*.py that keeps a jax_golden.Golden (its recipes, the
+functions that say what the JAX package is asked) is imported and each
+recipe run on each of its cases, on the CPU with the test configuration's
+eight virtual devices; the results go to tests/golden_torch/<module>.npz
+with the JAX package's source digest and JAX version (tests/jax_golden.py
+holds the format). Each module runs in a process of its own, --jobs N of
+them at once; --only module[,module] re-records only the named modules;
+--out DIR writes the files to DIR instead.
+
+    JAX_PLATFORMS=cpu python tools/record_torch_golden.py --tests --jobs 4
+    JAX_PLATFORMS=cpu python tools/record_torch_golden.py --tests \
+        --only test_torch_decoder
 """
 
 from __future__ import annotations
@@ -53,15 +67,18 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-sys.path.insert(0, ROOT)
+TESTS = os.path.join(ROOT, "tests")
+sys.path[:0] = [ROOT, TESTS]
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
 
 # chip_smoke.SHARDED_RUN runs the JAX ShardedEncoderSession over four
-# virtual CPU devices (chip_smoke.SHARDED_TILES); set before JAX loads.
+# virtual CPU devices (chip_smoke.SHARDED_TILES); the tests' recipes run
+# on the eight of tests/conftest.py. Set before JAX loads.
 _flags = os.environ.get("XLA_FLAGS", "")
 if "xla_force_host_platform_device_count" not in _flags:
+    _n = 8 if "--tests" in sys.argv[1:] else 4
     os.environ["XLA_FLAGS"] = (
-        _flags + " --xla_force_host_platform_device_count=4").strip()
+        _flags + f" --xla_force_host_platform_device_count={_n}").strip()
 
 OUT = os.path.join(ROOT, "media_tpu_torch", "golden_1080p.json")
 
@@ -180,7 +197,70 @@ def record_oracle_run(cs, name: str) -> dict:
                                for f in dec.decode_annexb(au)]}
 
 
+def record_test_module(module: str, out_dir: str) -> None:
+    """Run one test module's recipes and write its golden file."""
+    import importlib
+
+    import jax
+    import jax_golden
+
+    t0 = time.perf_counter()
+    golden = importlib.import_module(module).GOLDEN
+    goldens = golden.record(log=lambda line: print(line, flush=True))
+    meta = {"module": module,
+            "jax_source_sha256": jax_golden.source_digest(),
+            "jax_version": jax.__version__}
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, module + ".npz")
+    with open(path, "wb") as f:
+        f.write(jax_golden.dump(meta, goldens))
+    print(f"{module}: {os.path.getsize(path)} bytes, "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def record_tests(argv: list) -> None:
+    """--tests: every module's golden, or the --only ones, each recorded
+    in a child process (one process compiling every module's programs
+    outgrows what XLA:CPU keeps loaded), --jobs at a time."""
+    import subprocess
+    from concurrent.futures import ThreadPoolExecutor
+
+    import jax_golden
+
+    modules = jax_golden.golden_modules()
+    out_dir = os.path.join(TESTS, "golden_torch")
+    if "--out" in argv:
+        out_dir = os.path.abspath(argv[argv.index("--out") + 1])
+    jobs = int(argv[argv.index("--jobs") + 1]) if "--jobs" in argv else 1
+    if "--only" in argv:
+        only = argv[argv.index("--only") + 1].split(",")
+        unknown = [m for m in only if m not in modules]
+        if unknown:
+            raise SystemExit(f"--only: no golden module {unknown}; they are "
+                             f"{modules}")
+        modules = only
+    if "--child" in argv:
+        record_test_module(modules[0], out_dir)
+        return
+
+    def child(module):
+        return subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--tests", "--child",
+             "--only", module, "--out", out_dir]).returncode
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(jobs) as pool:
+        codes = dict(zip(modules, pool.map(child, modules)))
+    print(f"{len(modules)} modules, {time.perf_counter() - t0:.1f} s")
+    failed = [m for m, rc in codes.items() if rc]
+    if failed:
+        raise SystemExit(f"recording failed: {failed}")
+
+
 def main() -> None:
+    if "--tests" in sys.argv[1:]:
+        record_tests(sys.argv[1:])
+        return
     import chip_smoke as cs
 
     t0 = time.perf_counter()
