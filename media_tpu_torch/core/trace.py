@@ -29,11 +29,14 @@ The spans, by name:
   slice headers, `merge_slice_data`, `wrap_nal`, the AUD; with CABAC, the
   transcode below and the header, alignment and NAL around it.
 - `enc.p.transcode`: one P slice's device CAVLC pack re-coded as CABAC
-  (`EncoderSession._cabac_au_from_cavlc_stream`): the C++
-  `transcode_pslice_native`, or the Python parse and recode where it
-  refuses. One a P frame; inside `enc.p.assemble` on the constant-QP
-  packed path, and in the CBR + CABAC finisher, which has no span of its
-  own.
+  (`EncoderSession._cabac_au_from_cavlc_stream`), as the finisher's thread
+  spends it: the wait for the C++ `transcode_pslice_native`, which runs on
+  the process's pool of host threads (`pipeline.codec.transcode_chunk`,
+  every slice of the chunk at once), or the routine itself where the chunk
+  gets one worker; and the Python parse and recode where it refuses. One a
+  P frame, on the finisher's thread alone (the pool's threads open no
+  span); inside `enc.p.assemble` on the constant-QP packed path, and in
+  the CBR + CABAC finisher, which has no span of its own.
 - `enc.idr.launch`: an IDR's planes uploaded and cast, the intra wavefront
   and the IDR's deblocking enqueued (`FrameEncoder.encode_iframe`).
 - `enc.idr.download`: the IDR's symbol arrays copied to the host, with the
@@ -54,6 +57,10 @@ The counters beside them, in the port's `.launches` idiom:
 - `native.fallbacks["transcode_pslice_native"]`: P slices the C++
   transcoder refused, each then re-coded by the Python parse and recode
   inside its `enc.p.transcode`.
+- `pipeline.codec.transcode_chunk.pooled` and `.inline`: P slices whose
+  C++ transcode ran on the pool's threads, and those of chunks that got one
+  worker (one CPU, or a chunk of one frame), transcoded on the finisher's
+  thread.
 - `pipeline.codec.wait_for_chunk.ready` and `.waited`: CUDA chunks of the
   packed P path whose completion event had fired when their `enc.p.download`
   began (the host set the pace, and assembly overlapped the device), and

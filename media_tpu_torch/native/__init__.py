@@ -48,8 +48,10 @@ SYMBOLS = ("mtpu_write_slice_i", "mtpu_write_slice_p", "mtpu_escape_rbsp",
            "mtpu_cabac_engine_bins")
 
 # How often a C++ routine refused a slice (returned n < 0) and its caller
-# went on with the Python coder, by wrapper name.
+# went on with the Python coder, by wrapper name. The wrappers run on
+# several threads (a chunk's P transcodes): counted under _COUNT_LOCK.
 fallbacks: collections.Counter = collections.Counter()
+_COUNT_LOCK = threading.Lock()
 
 
 def build(compiler: str = "g++") -> tuple[str, float]:
@@ -285,7 +287,8 @@ def _init_p(cabac_init_idc: int):
 
 
 def _refused(name: str) -> None:
-    fallbacks[name] += 1
+    with _COUNT_LOCK:
+        fallbacks[name] += 1
 
 
 def write_islice_native(bw, mode16, chroma_mode, dc, ac, cdc, cac) -> None:
@@ -332,7 +335,6 @@ def write_pslice_native(bw, mv, luma, cdc, cac) -> None:
 
 
 write_pslice_native.calls = 0
-_COUNT_LOCK = threading.Lock()
 
 
 def escape_rbsp_native(data: bytes) -> bytes:

@@ -15,7 +15,9 @@ The session runs on the GPU unless the caller passes device="cpu".
 from __future__ import annotations
 
 import math
+import os
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 
 import numpy as np
@@ -110,6 +112,63 @@ def wait_for_chunk(done) -> None:
 wait_for_chunk.ready = 0
 wait_for_chunk.waited = 0
 _COUNT_LOCK = threading.Lock()
+
+
+def _slice_bytes(stream_words) -> bytes:
+    """A device CAVLC pack's 32-bit words as the slice's bytes."""
+    return np.asarray(stream_words, dtype=np.uint32).byteswap().tobytes()
+
+
+def _transcode_workers(k: int) -> int:
+    """Host threads for the C++ transcodes of a chunk of k slices: one a
+    slice, at most one a CPU this process may run on."""
+    return min(k, len(os.sched_getaffinity(0)))
+
+
+_POOL = None
+_POOL_LOCK = threading.Lock()
+
+
+def _transcode_pool() -> ThreadPoolExecutor:
+    """The process's pool of transcode threads, made at its first use with
+    one thread a CPU the process may run on; sessions in several threads
+    share it."""
+    global _POOL
+    with _POOL_LOCK:
+        if _POOL is None:
+            _POOL = ThreadPoolExecutor(len(os.sched_getaffinity(0)),
+                                       thread_name_prefix="transcode")
+        return _POOL
+
+
+def transcode_chunk(slices, R: int, C: int, cabac_init_idc: int):
+    """Start the C++ CAVLC -> CABAC transcodes of a chunk's P slices, each
+    (stream_words, total_bits, qp), on the process's pool of host threads:
+    every slice is handed over before any is awaited, and the routine
+    releases the GIL. Returns one Future a slice, in order, whose result is
+    the payload or None (the routine refused the slice); where the chunk
+    gets one worker (`_transcode_workers`), None a slice instead, and the
+    caller transcodes each on its own thread. Counts the slices in
+    `transcode_chunk.pooled` or `transcode_chunk.inline`."""
+    k = len(slices)
+    pooled = _transcode_workers(k) > 1
+    with _COUNT_LOCK:
+        if pooled:
+            transcode_chunk.pooled += k
+        else:
+            transcode_chunk.inline += k
+    if not pooled:
+        return [None] * k
+    native.load()  # built and bound here, not by k threads at once
+    pool = _transcode_pool()
+    return [pool.submit(native.transcode_pslice_native, _slice_bytes(w),
+                        int(nbits), 0, R, C, int(qp),
+                        cabac_init_idc=cabac_init_idc)
+            for w, nbits, qp in slices]
+
+
+transcode_chunk.pooled = 0
+transcode_chunk.inline = 0
 
 
 def _check_supported(cfg: EncoderConfig) -> None:
@@ -539,9 +598,9 @@ class EncoderSession:
                 if int(bits.max()) <= cap_eff * 32:
                     with span("enc.p.assemble"):
                         if cfg.cabac:
-                            return [self._cabac_au_from_cavlc_stream(
-                                streams_np[j], int(bits[j]), cfg.qp,
-                                frame_base + j) for j in range(k)]
+                            return self._cabac_aus_from_cavlc_chunk(
+                                [(streams_np[j], int(bits[j]), cfg.qp,
+                                  frame_base + j) for j in range(k)])
                         return [self._pslice_au_packed(
                             streams_np[j], int(bits[j]),
                             frame_idx=frame_base + j) for j in range(k)]
@@ -606,17 +665,16 @@ class EncoderSession:
             # The device words are int64 holding 32-bit values: uint32 once,
             # here, before the transcoder's byte swap.
             streams = streams_d[:, :nw].cpu().numpy().astype(np.uint32)
-            aus = []
+            aus = self._cabac_aus_from_cavlc_chunk(
+                [(streams[j], int(bits[j]), int(qps[j]), frame_base + j)
+                 for j in range(k)])
             ratios = []
-            for j in range(k):
-                au = self._cabac_au_from_cavlc_stream(
-                    streams[j], int(bits[j]), int(qps[j]), frame_base + j)
+            for j, au in enumerate(aus):
                 actual = len(au) * 8
                 est = float(bits[j]) * scale_used
                 self._rc_corr += actual - est
                 if bits[j] > 0:
                     ratios.append(actual / float(bits[j]))
-                aus.append(au)
             if ratios:
                 r = float(np.mean(ratios))
                 self._cabac_scale = min(max(
@@ -632,24 +690,44 @@ class EncoderSession:
 
         return finish
 
+    def _cabac_aus_from_cavlc_chunk(self, rows) -> list[bytes]:
+        """A chunk's CABAC P-slice AUs, in frame order, from its device
+        CAVLC packs; rows: (stream_words, total_bits, qp, frame_idx) a
+        frame. The C++ transcodes run side by side on the process's pool
+        (transcode_chunk); each AU is then built here, one after another,
+        as _cabac_au_from_cavlc_stream builds it from its slice's payload:
+        the bytes of one call a row."""
+        pending = [None] * len(rows)
+        if self._native:
+            R = self.slice_rows[0][1] - self.slice_rows[0][0]
+            pending = transcode_chunk([row[:3] for row in rows], R,
+                                      self.sps.pic_width_in_mbs,
+                                      self.cfg.cabac_init_idc)
+        return [self._cabac_au_from_cavlc_stream(*row, transcoded=fut)
+                for row, fut in zip(rows, pending)]
+
     def _cabac_au_from_cavlc_stream(self, stream_words, total_bits: int,
-                                    qp: int, frame_idx: int) -> bytes:
+                                    qp: int, frame_idx: int,
+                                    transcoded=None) -> bytes:
         """One CABAC P-slice AU from a device CAVLC pack: the C++
-        transcoder, or the Python parse + recode where it refuses the
-        slice."""
+        transcoder's payload (awaited from `transcoded`, the slice's Future
+        from transcode_chunk, or computed here without one), or the Python
+        parse + recode where it refuses the slice."""
         from .decoder_tpu import parse_pslice_symbols
 
-        data = np.asarray(stream_words, dtype=np.uint32).byteswap().tobytes()
         R = self.slice_rows[0][1] - self.slice_rows[0][0]
         C = self.sps.pic_width_in_mbs
         with span("enc.p.transcode"):
             payload = None
-            if self._native:
+            if transcoded is not None:
+                payload = transcoded.result()
+            elif self._native:
                 payload = native.transcode_pslice_native(
-                    data, total_bits, 0, R, C, qp,
+                    _slice_bytes(stream_words), total_bits, 0, R, C, qp,
                     cabac_init_idc=self.cfg.cabac_init_idc)
             if payload is None:
-                sym = parse_pslice_symbols(BitReader(data), R, C, slice_qp=qp)
+                sym = parse_pslice_symbols(BitReader(_slice_bytes(
+                    stream_words)), R, C, slice_qp=qp)
                 payload = cabac_slice.write_pslice_cabac(
                     sym["mv"], sym["luma_levels"], sym["cdc_levels"],
                     sym["cac_levels"], qp,

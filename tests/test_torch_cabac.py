@@ -18,6 +18,9 @@ survive a forced overflow of the stream cap; its TpuDecoder must decode the
 stream to the JAX TpuDecoder's planes and to the encoder's recon.
 """
 
+import os
+import sys
+import threading
 import types
 
 import numpy as np
@@ -35,7 +38,9 @@ from media_tpu_torch.entropy import cabac_contexts as tctx
 from media_tpu_torch.entropy import cabac_engine as teng
 from media_tpu_torch.entropy import cabac_init_tables as tinit
 from media_tpu_torch.entropy import cabac_slice as tslice
-from media_tpu_torch.pipeline.codec import EncoderConfig, EncoderSession
+from media_tpu_torch.pipeline import codec
+from media_tpu_torch.pipeline.codec import (EncoderConfig, EncoderSession,
+                                            transcode_chunk)
 from media_tpu_torch.pipeline.decoder_tpu import TpuDecoder
 
 W, H, CHUNK = 64, 48, 2
@@ -428,3 +433,146 @@ def test_cabac_cq_device_routes_equal_encode_frame_and_host(w, h, case,
             assert torch.equal(a, b), name
     refused = native.fallbacks["transcode_pslice_native"] - before
     assert refused == (2 * 4 if case == "transcoder_refuses" else 0)
+
+
+# --------------------------------------- a chunk's transcodes on host threads
+
+
+def _workers(n):
+    """A stand-in for `_transcode_workers`: 1 forces the inline route;
+    "all" hands every slice of a chunk to the pool, whatever the CPUs."""
+    return (lambda k: 1) if n == 1 else (lambda k: k)
+
+
+def _refuse_every_other(monkeypatch):
+    """The C++ transcoder refuses every other call; returns a reader of the
+    refusals so far. Calls come from the pool's threads in any order."""
+    real = native.transcode_pslice_native
+    lock = threading.Lock()
+    calls = [0]
+
+    def half(*a, **kw):
+        with lock:
+            calls[0] += 1
+            refuse = calls[0] % 2 == 0
+        if refuse:
+            return native._refused("transcode_pslice_native")
+        return real(*a, **kw)
+
+    monkeypatch.setattr(native, "transcode_pslice_native", half)
+    return lambda: calls[0] // 2
+
+
+@pytest.mark.parametrize("route", ["staged", "fed"])
+@pytest.mark.parametrize("case", ["pooled", "inline", "every_other_refused"])
+def test_chunk_transcodes_on_the_pool_equal_the_inline_route(route, case,
+                                                              monkeypatch):
+    """Chunks of 4 frames: the slices' C++ transcodes on the pool's threads
+    give the AUs of the inline route (the pool's size patched to 1) and of
+    the JAX session, in order; where the transcoder refuses every other
+    slice (the Python parse and recode on the finisher's thread) too, and
+    each refusal is counted once."""
+    monkeypatch.setattr(codec, "_transcode_workers",
+                        _workers(1 if case == "inline" else "all"))
+    refused = (_refuse_every_other(monkeypatch)
+               if case == "every_other_refused" else lambda: 0)
+    counts0 = transcode_chunk.pooled, transcode_chunk.inline
+    before = native.fallbacks["transcode_pslice_native"]
+    s = cq_device()
+    s.PIPELINE_CHUNK = 4
+    got = [s.encode_frame(FRAMES[0])]
+    if route == "staged":
+        got += s.encode_frames_staged(s.upload_frames(FRAMES[1:9]))
+    else:
+        got += s.encode_frames(FRAMES[1:9])
+    assert got == sum(GOLDEN.read(run_jax, "cq_cabac")["phases"], [])[:9]
+    assert native.fallbacks["transcode_pslice_native"] - before == refused()
+    assert refused() == (4 if case == "every_other_refused" else 0)
+    pooled = transcode_chunk.pooled - counts0[0]
+    inline = transcode_chunk.inline - counts0[1]
+    assert (pooled, inline) == ((0, 8) if case == "inline" else (8, 0))
+
+
+@pytest.mark.parametrize("name", ["cbr_cabac", "cbr_cabac_aq"])
+def test_cbr_cabac_finisher_on_the_pool_keeps_the_rate_state(name,
+                                                              monkeypatch):
+    """The CBR + CABAC finisher with its transcodes on the pool: the JAX
+    session's AUs along every entry point, and the rate state of the inline
+    route bit for bit (the corrections run in frame order over the AUs)."""
+    runs = {}
+    for n in (1, "all"):
+        monkeypatch.setattr(codec, "_transcode_workers", _workers(n))
+        s = make(EncoderSession, name, device="cpu")
+        phases, rec, state = drive(s, name)
+        assert phases == GOLDEN.read(run_jax, name)["phases"]
+        del state["recon"]  # the planes: held by the AUs
+        runs[n] = (rec, state, dict(s.rc_state), s._rc_corr,
+                   s._cabac_scale)
+    assert runs[1] == runs["all"]
+
+
+def test_sessions_in_two_threads_give_their_serial_bytes():
+    """Two sessions, one constant-QP CABAC on the staged route and one
+    CBR + CABAC on the fed route, encoding at once in two Python threads
+    that share the pool: each gives the bytes it gives alone."""
+    def cq():
+        s = cq_device()
+        s.PIPELINE_CHUNK = 4
+        return [s.encode_frame(FRAMES[0])] + s.encode_frames_staged(
+            s.upload_frames(FRAMES[1:9]))
+
+    def cbr():
+        s = make(EncoderSession, "cbr_cabac", device="cpu")
+        return [s.encode_frame(FRAMES[0])] + s.encode_frames(FRAMES[1:9])
+
+    jobs = {"cq": cq, "cbr": cbr}
+    want = {k: fn() for k, fn in jobs.items()}
+    got, errors = {}, []
+    start = threading.Barrier(len(jobs))
+
+    def run(key):
+        try:
+            start.wait(timeout=60)
+            got[key] = jobs[key]()
+        except Exception as e:  # reported below, with its thread
+            errors.append((key, e))
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        threads = [threading.Thread(target=run, args=(k,)) for k in jobs]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert errors == []
+    assert got == want
+
+
+@pytest.mark.parametrize("cabac,cpus,chunk,want", [
+    (True, 4, 4, "pooled"), (True, 1, 4, "inline"), (True, 4, 1, "inline"),
+    (False, 4, 4, "none")], ids=["cabac", "one_cpu", "chunk_of_one",
+                                 "cavlc"])
+def test_transcode_counters(cabac, cpus, chunk, want, monkeypatch):
+    """transcode_chunk.pooled counts every P slice of a staged CABAC run
+    where the process may run on several CPUs; on one CPU, or in chunks of
+    one frame, .inline counts them instead; a CAVLC run counts none. The
+    pool's size is min(k, CPUs the process may run on), read here from a
+    patched affinity mask."""
+    monkeypatch.setattr(os, "sched_getaffinity",
+                        lambda pid: set(range(cpus)))
+    assert codec._transcode_workers(8) == min(8, cpus)
+    s = cq_device() if cabac else EncoderSession(EncoderConfig(
+        width=W, height=H, qp=30, gop_size=30, entropy_mode="device"),
+        device="cpu")
+    s.PIPELINE_CHUNK = chunk
+    s.encode_frame(FRAMES[0])
+    counts0 = transcode_chunk.pooled, transcode_chunk.inline
+    s.encode_frames_staged(s.upload_frames(FRAMES[1:9]))
+    counts = (transcode_chunk.pooled - counts0[0],
+              transcode_chunk.inline - counts0[1])
+    assert counts == {"pooled": (8, 0), "inline": (0, 8),
+                      "none": (0, 0)}[want]

@@ -15,6 +15,7 @@ import ctypes
 import os
 import subprocess
 import sys
+import threading
 from pathlib import Path
 
 import numpy as np
@@ -441,6 +442,36 @@ def test_refusal_is_counted_and_returns_none():
     assert native.fallbacks["parse_pslice_native"] == before + 1
     with pytest.raises(slice_coder.UnsupportedStream, match="mb_type 3"):
         parse_pslice_symbols(BitReader(data), 2, 2, slice_qp=30)
+
+
+def test_refusals_from_many_threads_are_each_counted():
+    """The wrappers run on a pool's threads (a chunk's P transcodes): 16
+    threads, more than this host's cores, each refused 40 times with a short
+    switch interval, count 640 refusals, none lost."""
+    bw = BitWriter()
+    bw.ue(0)  # mb_skip_run
+    bw.ue(3)  # mb_type P_8x8, outside the C++ parser's envelope
+    bw.rbsp_trailing_bits()
+    data = bw.get_bytes()
+    before = native.fallbacks["parse_pslice_native"]
+
+    def refuse():
+        for _ in range(40):
+            assert native.parse_pslice_native(data, len(data) * 8, 0, 2, 2,
+                                              30) is None
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=refuse) for _ in range(16)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert native.fallbacks["parse_pslice_native"] == before + 16 * 40
 
 
 def _clip(w, h, n, seed=0):

@@ -11,6 +11,7 @@ small for any frame. No JAX.
 """
 
 import contextlib
+import threading
 from unittest import mock
 
 import numpy as np
@@ -172,3 +173,40 @@ def test_one_transcode_a_pframe_inside_its_assembly(cabac_runs):
     assert len(assemble) == N_P // CHUNK and len(transcode) == N_P
     for a, b in transcode:
         assert any(fa <= a and b <= fb for fa, fb in assemble)
+
+
+def test_transcode_spans_stay_on_the_finishers_thread(monkeypatch):
+    """A chunk of four CABAC P slices, every transcode handed to the pool's
+    threads: four `enc.p.transcode` spans still, each inside the chunk's
+    assembly, and every span opened, and every `enc.*` event in the trace,
+    on the one thread that encodes (the pool's threads open none), so a
+    reader of the window's thread counts one a P frame."""
+    from media_tpu_torch.pipeline import codec
+
+    monkeypatch.setattr(codec, "_transcode_workers", lambda k: k)
+    opened = []  # (span name, thread) of every span the session opens
+
+    def span(name):
+        opened.append((name, threading.get_ident()))
+        return trace.span(name)
+
+    monkeypatch.setattr(codec, "span", span)
+    frames = _frames(5)
+    sess = EncoderSession(EncoderConfig(width=W, height=H, qp=30,
+                                        **CABAC_CQ), device="cpu")
+    sess.PIPELINE_CHUNK = 4
+    chunks = sess.upload_frames(frames[1:])
+    pooled = codec.transcode_chunk.pooled
+    with _profiled() as events:
+        sess.encode_frame(frames[0])
+        sess.encode_frames_staged(chunks)
+    assert codec.transcode_chunk.pooled - pooled == 4
+    assert {t for _, t in opened} == {threading.get_ident()}
+    assert [n for n, _ in opened].count("enc.p.transcode") == 4
+    ours = [(e.name(), e.start_ns(), e.end_ns(), e.start_thread_id())
+            for e in events if e.name().startswith("enc.")]
+    assert len({t for *_, t in ours}) == 1
+    transcode = _spans([e[:3] for e in ours], "enc.p.transcode")
+    (assemble,) = _spans([e[:3] for e in ours], "enc.p.assemble")
+    assert len(transcode) == 4
+    assert all(assemble[0] <= a and b <= assemble[1] for a, b in transcode)
